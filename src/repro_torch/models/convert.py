@@ -1,0 +1,133 @@
+"""ViG parameters: the spec, a seeded init, and conversion from the JAX
+package's parameter tree.
+
+Parameters are a nested dict of tensors with the JAX tree's structure and
+names (``params["stage0"]["block0"]["fc_in"]``). Every dense weight is
+stored (in, out), as in JAX, and applied as ``x @ W``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "fanin"  # fanin | ones | normal
+
+
+def _block_spec(d: int, ffn: int) -> dict:
+    return {
+        "ln_g": {"scale": ParamSpec((d,), "ones")},
+        "fc_in": ParamSpec((d, d)),
+        "fc_graph": ParamSpec((2 * d, d)),
+        "fc_out": ParamSpec((d, d)),
+        "ln_f": {"scale": ParamSpec((d,), "ones")},
+        "fc1": ParamSpec((d, ffn * d)),
+        "fc2": ParamSpec((ffn * d, d)),
+    }
+
+
+def vig_param_spec(cfg) -> dict:
+    """The parameter tree of a ``VigConfig`` (``repro/models/vig.py``'s
+    ``vig_param_spec``), as ParamSpec leaves."""
+    n0 = cfg.base_grid * cfg.base_grid
+    p: dict[str, Any] = {
+        "stem": ParamSpec((cfg.patch * cfg.patch * cfg.in_chans,
+                           cfg.embed_dims[0])),
+        "pos": ParamSpec((n0, cfg.embed_dims[0]), "normal"),
+        "head": ParamSpec((cfg.embed_dims[-1], cfg.num_classes)),
+    }
+    for si, (d, depth) in enumerate(zip(cfg.embed_dims, cfg.depths)):
+        p[f"stage{si}"] = {
+            f"block{bi}": _block_spec(d, cfg.ffn_ratio) for bi in range(depth)
+        }
+        if si + 1 < len(cfg.embed_dims):
+            p[f"down{si}"] = ParamSpec((4 * d, cfg.embed_dims[si + 1]))
+    return p
+
+
+def flatten(tree: Mapping, prefix: str = "") -> dict[str, Any]:
+    """Nested dict -> {"stage0/block0/fc_in": leaf, ...}."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(flatten(val, path + "/"))
+        else:
+            out[path] = val
+    return out
+
+
+def unflatten(flat: Mapping[str, Any]) -> dict:
+    """{"a/b": leaf} -> {"a": {"b": leaf}}."""
+    tree: dict = {}
+    for path, val in flat.items():
+        node = tree
+        *parents, last = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = val
+    return tree
+
+
+def _init_leaf(s: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    """The JAX package's initializers (``models/module.py``): ones, normal
+    with sd 0.02, or fan-in normal with sd 1/sqrt(shape[0])."""
+    if s.init == "ones":
+        return torch.ones(s.shape)
+    if s.init == "normal":
+        return torch.randn(s.shape, generator=gen) * 0.02
+    if s.init == "fanin":
+        return torch.randn(s.shape, generator=gen) / math.sqrt(max(s.shape[0], 1))
+    raise ValueError(f"unknown init {s.init!r}")
+
+
+def init_params(cfg, *, generator: torch.Generator, device="cuda") -> dict:
+    """Seeded random parameters, drawn on the CPU from ``generator`` in
+    the tree's path order, then moved to ``device``. Different numbers
+    from JAX's init for the same seed: tests share weights through
+    ``params_from_numpy``."""
+    dev = resolve_device(device)
+    flat = flatten(vig_param_spec(cfg))
+    return unflatten({
+        path: _init_leaf(s, generator).to(dev) for path, s in sorted(flat.items())
+    })
+
+
+def params_from_numpy(cfg, tree: Mapping, *, device="cuda") -> dict:
+    """The JAX parameter tree as numpy arrays (``jax.tree.map(np.asarray,
+    params)``) -> the port's parameters (fp32 tensors on ``device``).
+    Raises unless the tree has exactly the spec's paths and shapes."""
+    dev = resolve_device(device)
+    want = flatten(vig_param_spec(cfg))
+    got = flatten(tree)
+    if set(got) != set(want):
+        raise ValueError(
+            f"parameter tree does not match {cfg.name!r}: missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}"
+        )
+    out = {}
+    for path, s in want.items():
+        arr = np.asarray(got[path], dtype=np.float32)
+        if arr.shape != s.shape:
+            raise ValueError(f"{path}: shape {arr.shape}, expected {s.shape}")
+        out[path] = torch.from_numpy(arr.copy()).to(dev)
+    return unflatten(out)
+
+
+def params_to_numpy(params: Mapping) -> dict:
+    """The port's parameters -> a nested dict of numpy arrays (the JAX
+    tree's layout)."""
+    return unflatten({
+        path: t.detach().cpu().numpy() for path, t in flatten(params).items()
+    })

@@ -7,6 +7,9 @@ import os
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (skips where there is none)"
+    )
     # Fixed hypothesis profile (CI fast job + local runs): no deadline —
     # jit compiles inside property bodies blow any wall-clock budget —
     # and derandomized so every run draws the same examples (the serve

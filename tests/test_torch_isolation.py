@@ -1,0 +1,75 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and the entry points do not quietly run
+on the CPU when a card was asked for."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.models import convert, vig  # noqa: E402
+from repro_torch.serve.engine import VigServeEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    snippet = textwrap.dedent(f"""
+        import importlib, json, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print(json.dumps({{"modules": names, "bad": bad}}))
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", snippet], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "repro_torch.kernels.ops" in out["modules"]
+    assert "repro_torch.serve.engine" in out["modules"]
+    assert out["bad"] == []
+
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"].replace(
+        image_size=16, patch=4, embed_dims=(8,), depths=(1,), num_classes=2)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.init_params(cfg, generator=gen)
+    params = convert.init_params(cfg, generator=gen, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_numpy(cfg, convert.params_to_numpy(params))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vig.Vig(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VigServeEngine(cfg, params)
+    eng = VigServeEngine(cfg, params, device="cpu")
+    assert eng.infer(np.zeros((1, 16, 16, 3), np.float32)).shape == (1, 2)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run")
+    env = {**os.environ, "PYTHONPATH": ""}
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, env=env,
+                          cwd=tmp_path, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
