@@ -1,13 +1,18 @@
 # Dynamic Image Graph Construction (DIGC) in PyTorch: the spec + builder
-# registry, the reference tier and the graph ops. Batched-first: (B, N, D)
-# in, (B, N, k) int32 out, with (N, D) promoted to B=1. The ``cuda`` tier
-# registers from ``repro_torch.kernels.ops`` on first use.
+# registry, the reference and blocked tiers and the graph ops.
+# Batched-first: (B, N, D) in, (B, N, k) int32 out, with (N, D) promoted
+# to B=1. The ``cuda`` tier registers from ``repro_torch.kernels.ops`` on
+# first use.
 
 from repro_torch.core.builder import (
+    DEGRADATION_LADDER,
     DigcSpec,
     GraphBuilder,
     available_impls,
+    degraded_spec,
+    fallback_chain,
     get_builder,
+    list_builders,
     promote_batch,
     register,
     resolve_spec,
@@ -15,6 +20,7 @@ from repro_torch.core.builder import (
 from repro_torch.core.digc import (
     BIG,
     digc,
+    digc_blocked,
     digc_reference,
     dilate,
     pairwise_sq_dists,

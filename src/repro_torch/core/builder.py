@@ -6,9 +6,12 @@
 * ``GraphBuilder`` -- one registered implementation: a batched build
   function, the knobs it accepts, capability flags and an optional fused
   aggregation kernel.
-* the registry    -- ``register`` / ``get_builder`` / ``available_impls``.
-  Builders register when their module is imported; ``_LAZY`` names that
-  module, so ``get_builder("cuda")`` imports the kernel package on demand.
+* the registry    -- ``register`` / ``get_builder`` / ``available_impls``
+  / ``list_builders``. Builders register when their module is imported;
+  ``_LAZY`` names that module, so ``get_builder("cuda")`` imports the
+  kernel package on demand.
+* the degradation ladder -- ``DEGRADATION_LADDER``, ``fallback_chain``,
+  ``degraded_spec``: pure functions; no serving path calls them yet.
 
 Build functions are batched-first: x (B, N, D), y (B, M, D) or None (the
 self-graph), pos_bias (B, N, M) or None -> (idx, dist), each (B, N, k).
@@ -91,6 +94,8 @@ class DigcSpec:
 
 
 _COMMON_FIELDS = ("impl", "k", "dilation", "causal")
+# Stale-graph reuse knobs (accepted by stateful tiers).
+REUSE_KNOBS: frozenset = frozenset({"reuse", "drift_tau", "max_stale"})
 KNOB_FIELDS: tuple[str, ...] = tuple(
     f.name for f in dataclasses.fields(DigcSpec) if f.name not in _COMMON_FIELDS
 )
@@ -136,9 +141,10 @@ class GraphBuilder:
 _REGISTRY: dict[str, GraphBuilder] = {}
 
 # name -> module whose import registers it. The other tiers of the JAX
-# package (blocked, cluster, axial, ring) are not ported yet.
+# package (cluster, axial, ring) are not ported yet.
 _LAZY: dict[str, str] = {
     "reference": "repro_torch.core.digc",
+    "blocked": "repro_torch.core.digc",
     "cuda": "repro_torch.kernels.ops",
 }
 
@@ -163,6 +169,35 @@ def get_builder(name: str) -> GraphBuilder:
             f"unknown DIGC impl: {name!r}; available: {available_impls()}"
         )
     return _REGISTRY[name]
+
+
+def list_builders() -> tuple[GraphBuilder, ...]:
+    """All builders, importing their defining modules."""
+    return tuple(get_builder(n) for n in available_impls())
+
+
+# The degradation ladder: when a tier cannot serve, the same request goes
+# to the next, less specialized one. Each rung accepts the common spec
+# fields with no tier knobs, needs less machinery than the rung above
+# (cuda needs nvcc and a card; blocked only torch; reference only a full
+# distance matrix) and is never less exact.
+DEGRADATION_LADDER: tuple[str, ...] = ("cuda", "blocked", "reference")
+
+
+def fallback_chain(impl: str) -> tuple[str, ...]:
+    """Ordered impls to serve through when ``impl`` is unhealthy; empty
+    for the last rung (reference). Tiers off the ladder degrade into its
+    exact single-device chain."""
+    if impl in DEGRADATION_LADDER:
+        return DEGRADATION_LADDER[DEGRADATION_LADDER.index(impl) + 1:]
+    return DEGRADATION_LADDER[1:]
+
+
+def degraded_spec(spec: DigcSpec, impl: str) -> DigcSpec:
+    """``spec``'s common fields on a degraded impl: the failed tier's
+    knobs (and the reuse knobs) are dropped."""
+    return DigcSpec(impl=impl, k=spec.k, dilation=spec.dilation,
+                    causal=spec.causal)
 
 
 def resolve_spec(

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.builder import (
+    REUSE_KNOBS,
     DigcSpec,
     GraphBuilder,
     available_impls,
@@ -31,6 +32,7 @@ from repro_torch.core.builder import (
     register,
     resolve_spec,
 )
+from repro_torch.core.engine import stream_topk
 
 # Large-but-finite sentinel: inf would give nan under (inf - inf) when a
 # positional bias is added to a masked lane.
@@ -101,6 +103,46 @@ def digc_reference(
     return idx
 
 
+def digc_blocked(
+    x: torch.Tensor,
+    y: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    dilation: int = 1,
+    pos_bias: Optional[torch.Tensor] = None,
+    block_m: int = 256,
+    block_n: Optional[int] = None,
+    merge: Optional[str] = None,
+    fuse_norms: bool = False,
+    mxu_bf16: bool = False,
+    sq_y: Optional[torch.Tensor] = None,
+    return_dists: bool = False,
+    causal: bool = False,
+    group_w: Optional[int] = None,
+    m_valid: Optional[torch.Tensor] = None,
+):
+    """Streaming DIGC through the engine (``core/engine.py``): distance
+    tile -> local selection -> global merge -> dilated selection, with
+    live memory O(B * block_n * block_m). ``merge`` is "select" (default)
+    or "topk" (exact) or "packed" (tie-tolerant); ``fuse_norms`` and
+    ``mxu_bf16`` are tie-tolerant too."""
+    x3, y3, p3, squeeze = promote_batch(x, y, pos_bias)
+    kd = k * dilation
+    dist, idx = stream_topk(
+        x3, None if y is None else y3, p3, kd=kd, block_m=block_m,
+        block_n=block_n, merge=merge, fuse_norms=fuse_norms,
+        mxu_bf16=mxu_bf16, causal=causal, sq_y=sq_y, group_w=group_w,
+        m_valid=m_valid,
+    )
+    idx = dilate(idx, dilation)
+    dist = dilate(dist, dilation)
+    if squeeze:
+        idx, dist = idx[0], dist[0]
+    if return_dists:
+        return idx, dist
+    return idx
+
+
 def digc(
     x: torch.Tensor,
     y: Optional[torch.Tensor] = None,
@@ -155,6 +197,25 @@ def _build_reference(x, y, pos_bias, spec: DigcSpec, m_valid=None):
     )
 
 
+def _build_blocked(x, y, pos_bias, spec: DigcSpec, state_entry=None,
+                   m_valid=None):
+    reuse = sorted(f for f in REUSE_KNOBS if getattr(spec, f) is not None)
+    if state_entry is not None or reuse:
+        raise NotImplementedError(
+            f"the blocked tier's functional state and stale-graph reuse "
+            f"({reuse or 'state_entry'}) are not ported yet (ROADMAP queue 1, "
+            "item 5)"
+        )
+    return digc_blocked(
+        x, y, k=spec.k, dilation=spec.dilation, pos_bias=pos_bias,
+        causal=spec.causal, return_dists=True,
+        block_m=spec.block_m if spec.block_m is not None else 256,
+        block_n=spec.block_n, merge=spec.merge,
+        fuse_norms=bool(spec.fuse_norms), mxu_bf16=bool(spec.mxu_bf16),
+        group_w=spec.group_w, m_valid=m_valid,
+    )
+
+
 register(GraphBuilder(
     name="reference",
     build=_build_reference,
@@ -163,4 +224,17 @@ register(GraphBuilder(
     supports_causal=True,
     supports_pad=True,
     doc="Algorithm 1 verbatim; full distance matrix (oracle tier)",
+))
+
+register(GraphBuilder(
+    name="blocked",
+    build=_build_blocked,
+    knobs=frozenset({
+        "block_n", "block_m", "merge", "fuse_norms", "mxu_bf16", "group_w",
+    }) | REUSE_KNOBS,
+    supports_pos_bias=True,
+    supports_causal=True,
+    supports_pad=True,
+    doc="streaming engine: (block_n x block_m) tiles + a select | topk | "
+        "packed merge",
 ))

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def knn_gather(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather neighbour features. y: (M, D), idx: (N, k) -> (N, k, D);
@@ -67,10 +69,11 @@ def degree_histogram(idx: torch.Tensor, m: int) -> torch.Tensor:
 
 def grid_pos_bias(h: int, w: int, hc: Optional[int] = None,
                   wc: Optional[int] = None, scale: float = 0.0,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """Relative positional bias P (N, M) between an h*w node grid and an
     hc*wc co-node grid (co-grid defaults to node grid); ``scale`` 0
-    returns zeros."""
+    returns zeros. Made on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     hc = hc or h
     wc = wc or w
 

@@ -28,11 +28,13 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points and their argument types. Pointers and the stream are
 # c_void_p: a bare Python int would be passed as a 32-bit int.
 SIGNATURES = {
-    "digc_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mrconv_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "digc_topk_launch": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
+    "mrconv_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

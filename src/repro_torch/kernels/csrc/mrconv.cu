@@ -12,9 +12,11 @@
 // not arithmetic. One warp owns one output row and loads it with 16-byte
 // vectors where D and the pointers allow; the k neighbour ids are
 // broadcast loads shared by the warp. The
-// running max starts at -1e30 in fp32 and an id outside [0, M) contributes
-// nothing, as in the TPU kernel. A NaN propagates, as torch.amax does, so
-// the result equals the plain PyTorch version bit for bit.
+// running max starts at -1e30 in fp32. Ids follow the JAX wrapper, which
+// pads M to Mpad zero rows: an id in [M, Mpad) reads a zero row (it
+// contributes -x), an id outside [0, Mpad) contributes nothing. A NaN
+// propagates, as torch.amax does, so the result equals the plain PyTorch
+// version bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -33,7 +35,7 @@ template <bool VEC4>
 __global__ void __launch_bounds__(32 * ROWS)
 mrconv_kernel(const float* __restrict__ x, const float* __restrict__ y,
               const int* __restrict__ idx, float* __restrict__ out, int rows,
-              int N, int M, int D, int K) {
+              int N, int M, int Mpad, int D, int K) {
   const int row = blockIdx.x * ROWS + threadIdx.y;
   if (row >= rows) return;
   const int b = row / N;
@@ -48,9 +50,11 @@ mrconv_kernel(const float* __restrict__ x, const float* __restrict__ y,
       float4 acc = make_float4(NEG, NEG, NEG, NEG);
       for (int j = 0; j < K; ++j) {
         const int nb = __ldg(ir + j);
-        if (nb < 0 || nb >= M) continue;
+        if (nb < 0 || nb >= Mpad) continue;
         const float4 yv =
-            reinterpret_cast<const float4*>(yb + static_cast<size_t>(nb) * D)[c];
+            nb < M ? reinterpret_cast<const float4*>(
+                         yb + static_cast<size_t>(nb) * D)[c]
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
         acc.x = max_nan(acc.x, yv.x - xv.x);
         acc.y = max_nan(acc.y, yv.y - xv.y);
         acc.z = max_nan(acc.z, yv.z - xv.z);
@@ -64,8 +68,9 @@ mrconv_kernel(const float* __restrict__ x, const float* __restrict__ y,
       float acc = NEG;
       for (int j = 0; j < K; ++j) {
         const int nb = __ldg(ir + j);
-        if (nb < 0 || nb >= M) continue;
-        acc = max_nan(acc, yb[static_cast<size_t>(nb) * D + c] - xv);
+        if (nb < 0 || nb >= Mpad) continue;
+        const float yv = nb < M ? yb[static_cast<size_t>(nb) * D + c] : 0.f;
+        acc = max_nan(acc, yv - xv);
       }
       orow[c] = acc;
     }
@@ -75,11 +80,12 @@ mrconv_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }  // namespace
 
 // x (B, N, D), y (B, M, D) fp32 and idx (B, N, K) int32, contiguous on the
-// current device; out (B, N, D) fp32 is written. Requires B, N, M >= 1.
+// current device; out (B, N, D) fp32 is written. Mpad >= M is the JAX
+// wrapper's padded row count. Requires B, N, M >= 1.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mrconv_launch(const void* x, const void* y, const void* idx,
-                             void* out, int B, int N, int M, int D, int K,
-                             void* stream) {
+                             void* out, int B, int N, int M, int Mpad, int D,
+                             int K, void* stream) {
   const int rows = B * N;
   const dim3 block(32, ROWS);
   const dim3 grid((rows + ROWS - 1) / ROWS);
@@ -93,9 +99,11 @@ extern "C" int mrconv_launch(const void* x, const void* y, const void* idx,
   const int* ii = static_cast<const int*>(idx);
   float* of = static_cast<float*>(out);
   if (vec4) {
-    mrconv_kernel<true><<<grid, block, 0, s>>>(xf, yf, ii, of, rows, N, M, D, K);
+    mrconv_kernel<true>
+        <<<grid, block, 0, s>>>(xf, yf, ii, of, rows, N, M, Mpad, D, K);
   } else {
-    mrconv_kernel<false><<<grid, block, 0, s>>>(xf, yf, ii, of, rows, N, M, D, K);
+    mrconv_kernel<false>
+        <<<grid, block, 0, s>>>(xf, yf, ii, of, rows, N, M, Mpad, D, K);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,15 +22,23 @@ NEG = -1e30
 mrconv_launches = 0
 
 
+def padded_rows(m: int) -> int:
+    """The JAX wrapper's padded co-node count: M rounded up to its
+    co-node block, ``min(512, M rounded up to 128)``."""
+    block_m = min(512, -(-m // 128) * 128)
+    return -(-m // block_m) * block_m
+
+
 def mrconv_plain(x: torch.Tensor, y: torch.Tensor,
                  idx: torch.Tensor) -> torch.Tensor:
     """x (B, N, D), y (B, M, D), idx (B, N, k) int -> (B, N, D) fp32."""
     b, n, k = idx.shape
     m, d = y.shape[1], y.shape[2]
     ids = idx.long()
-    valid = (ids >= 0) & (ids < m)
+    valid = (ids >= 0) & (ids < padded_rows(m))
     flat = ids.clamp(0, m - 1).reshape(b, n * k, 1).expand(b, n * k, d)
     neigh = torch.gather(y.float(), 1, flat).reshape(b, n, k, d)
+    neigh = neigh.masked_fill((ids >= m)[..., None], 0.0)  # zero pad rows
     rel = (neigh - x.float()[:, :, None, :]).masked_fill(~valid[..., None], NEG)
     return rel.amax(dim=2)
 
@@ -60,7 +68,8 @@ def mrconv_cuda(x: torch.Tensor, y: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.mrconv_launch(x.data_ptr(), y.data_ptr(), idx.data_ptr(),
-                                 out.data_ptr(), b, n, m, d, k, stream)
+                                 out.data_ptr(), b, n, m, padded_rows(m), d,
+                                 k, stream)
     _build.check_launch(code, "mrconv")
     mrconv_launches += 1
     return out

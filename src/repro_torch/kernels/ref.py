@@ -1,4 +1,5 @@
-"""Full-matrix oracle for the DIGC kernel (Algorithm 1, no blocking)."""
+"""The distance matrix of the DIGC kernel's plain version (Algorithm 1,
+no blocking)."""
 
 from __future__ import annotations
 
@@ -21,15 +22,3 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor,
     if pos_bias is not None:
         d = d + pos_bias
     return d
-
-
-def digc_reference(x: torch.Tensor, y: torch.Tensor,
-                   pos_bias: Optional[torch.Tensor] = None, *, kd: int):
-    """Full-matrix top-kd: (dist, idx), each (..., N, kd), ascending.
-
-    A stable sort keeps the lowest index first among equal distances,
-    the tie rule of ``lax.top_k``; ``torch.topk`` does not promise it.
-    """
-    dist, idx = torch.sort(pairwise_sq_dists(x, y, pos_bias), dim=-1,
-                           stable=True)
-    return dist[..., :kd], idx[..., :kd].to(torch.int32)

@@ -31,15 +31,17 @@ RTOL, ATOL = 1e-5, 1e-4
 
 
 def test_registry_lists_ported_tiers_and_rejects_the_rest():
-    assert builder.available_impls() == ("cuda", "reference")
+    assert builder.available_impls() == ("blocked", "cuda", "reference")
     assert builder.get_builder("cuda").aggregate is not None
-    with pytest.raises(ValueError, match=r"unknown DIGC impl: 'blocked'.*cuda"):
-        builder.get_builder("blocked")
+    with pytest.raises(ValueError, match=r"unknown DIGC impl: 'cluster'.*cuda"):
+        builder.get_builder("cluster")
 
 
+# Knobs of other tiers (the JAX pallas builder's tiles and interpret mode,
+# the engine's merge knobs, stale-graph reuse) that the kernel does not take.
 @pytest.mark.parametrize("knob", [
-    {"packed": True}, {"mxu_bf16": True}, {"kernel_merge": "legacy"},
-    {"bucket_rounds": 2}, {"block_n": 64}, {"reuse": "layer"},
+    {"block_m": 128}, {"interpret": True}, {"merge": "select"},
+    {"fuse_norms": True}, {"block_n": 64}, {"reuse": "layer"},
 ])
 def test_cuda_builder_rejects_unported_knobs(knob):
     x = torch.zeros(1, 8, 4)
@@ -48,12 +50,14 @@ def test_cuda_builder_rejects_unported_knobs(knob):
 
 
 def test_cuda_builder_rejects_causal_pos_bias_and_pad_masks():
+    """The kernel takes causal masks and positional bias (its variants);
+    pad masks (m_valid) stay with the pad-capable tiers."""
     x = torch.zeros(1, 8, 4)
-    with pytest.raises(ValueError, match="causal"):
-        digc.digc(x, k=2, impl="cuda", causal=True)
-    with pytest.raises(ValueError, match="pos_bias"):
-        digc.digc(x, k=2, impl="cuda", pos_bias=torch.zeros(8, 8))
-    with pytest.raises(ValueError, match="pad-capable impls: \\['reference'\\]"):
+    assert digc.digc(x, k=2, impl="cuda", causal=True).shape == (1, 8, 2)
+    assert digc.digc(x, k=2, impl="cuda",
+                     pos_bias=torch.zeros(8, 8)).shape == (1, 8, 2)
+    with pytest.raises(ValueError,
+                       match="pad-capable impls: \\['blocked', 'reference'\\]"):
         digc.digc(x, k=2, impl="cuda", m_valid=torch.ones(8, dtype=torch.bool))
 
 
@@ -136,6 +140,6 @@ def test_graph_ops_match_jax():
     np.testing.assert_array_equal(graph.degree_histogram(ti[0], m).numpy(),
                                   np.asarray(jgraph.degree_histogram(ji[0], m)))
     np.testing.assert_allclose(
-        graph.grid_pos_bias(4, 6, 2, 3, scale=0.7).numpy(),
+        graph.grid_pos_bias(4, 6, 2, 3, scale=0.7, device="cpu").numpy(),
         np.asarray(jgraph.grid_pos_bias(4, 6, 2, 3, scale=0.7)),
         rtol=1e-7, atol=1e-7)

@@ -7,8 +7,11 @@ no card; run them on a GPU host with
 Tolerances: the kernel sums the distance product in its own order (one
 fp32 FMA chain per entry), the plain version in cuBLAS's, so distances
 agree to fp32 rounding (rtol 1e-5, atol 1e-4 on distances of order
-2*D) and indices agree except at near-ties. MRConv does no arithmetic
-beyond one subtraction and a max, so it must agree bit for bit.
+2*D) and indices agree except at near-ties; packed keys keep
+32 - idx_bits bits of the distance, so they add a relative
+2**(idx_bits - 23). BIG lanes (causal) must match exactly, indices
+included. MRConv does no arithmetic beyond one subtraction and a max, so
+it must agree bit for bit.
 """
 
 import numpy as np
@@ -17,6 +20,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import testing  # noqa: E402
+from repro_torch.core.digc import BIG  # noqa: E402
+from repro_torch.core.graph import grid_pos_bias  # noqa: E402
+from repro_torch.core.packedkey import idx_bits_for  # noqa: E402
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.digc_topk import digc_topk_cuda, digc_topk_plain  # noqa: E402
 from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain  # noqa: E402
@@ -82,6 +88,75 @@ def test_digc_topk_kernel_rejects_what_it_cannot_take(cuda):
         digc_topk_cuda(x, y.cpu(), 4)
 
 
+# variant name -> kernel keywords; "pos" is a per-image bias, "shared" one
+# (1, N, M) bias read with batch stride 0.
+VARIANTS = {
+    "packed": dict(packed=True),
+    "mxu_bf16": dict(mxu_bf16=True),
+    "packed_bf16": dict(packed=True, mxu_bf16=True),
+    "pos": dict(pos_bias="pos"),
+    "shared": dict(pos_bias="shared"),
+    "causal": dict(causal=True),
+    "causal_pos_packed": dict(causal=True, pos_bias="pos", packed=True),
+}
+# (B, N, M, D, kd): the iso shape, a pyramid stage, ragged edges and the
+# KNN-attention shape (heads as the batch).
+VARIANT_SHAPES = [(2, 196, 196, 192, 18), (2, 784, 196, 96, 9),
+                  (3, 33, 70, 7, 5), (4, 2048, 2048, 32, 32)]
+
+
+@pytest.mark.parametrize("b,n,m,d,kd", VARIANT_SHAPES)
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_digc_topk_variant_matches_plain(cuda, name, b, n, m, d, kd):
+    kw = dict(VARIANTS[name])
+    if kw.get("pos_bias") == "pos":
+        kw["pos_bias"] = _t(testing.features(n * m, b, n, m), cuda)
+    elif kw.get("pos_bias") == "shared":
+        side = int(round(n ** 0.5))
+        if side * side != n or n != m:
+            pytest.skip("the shared grid bias needs a square self-graph")
+        kw["pos_bias"] = grid_pos_bias(side, side, scale=4.0, device=cuda)[None]
+    x = _t(testing.features(n + kd, b, n, d), cuda)
+    y = _t(testing.features(m + d, b, m, d), cuda)
+    reset_launch_counts()
+    dist, idx = digc_topk_cuda(x, y, kd, **kw)
+    ref_d, ref_i = digc_topk_plain(x, y, kd, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["digc_topk"] == 1
+    for v in ("packed", "mxu_bf16", "causal"):
+        assert counts[f"digc_topk.{v}"] == int(kw.get(v, False))
+    assert counts["digc_topk.pos_bias"] == int("pos_bias" in kw)
+    live = ref_d < BIG / 2
+    assert torch.equal(dist >= BIG / 2, ~live)
+    assert ((idx >= 0) & (idx < m)).all()
+    assert torch.equal(idx[~live], ref_i[~live])
+    assert torch.equal(dist[~live], ref_d[~live])
+    rtol = RTOL + (2.0 ** (idx_bits_for(m) - 23) if kw.get("packed") else 0.0)
+    fill = -1 - torch.arange(kd, dtype=torch.int32, device=cuda)  # distinct
+    testing.assert_topk_match(torch.where(live, idx, fill).cpu(),
+                              torch.where(live, dist, 0).cpu(),
+                              torch.where(live, ref_i, fill).cpu(),
+                              torch.where(live, ref_d, 0).cpu(), rtol=rtol,
+                              atol=ATOL + rtol * float(x.square().sum(-1).max()
+                                                       + y.square().sum(-1).max()))
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_digc_topk_variant_exact_ties(cuda, name):
+    kw = dict(VARIANTS[name])
+    x, y = testing.tied_inputs(3, 2, 70, 230, 12)
+    if kw.get("pos_bias") is not None:
+        p = np.random.default_rng(1).integers(-3, 4, (1 if kw["pos_bias"] ==
+                                                      "shared" else 2, 70, 230))
+        kw["pos_bias"] = _t(p.astype(np.float32), cuda)
+    dist, idx = digc_topk_cuda(_t(x, cuda), _t(y, cuda), 40, **kw)
+    ref_d, ref_i = digc_topk_plain(_t(x, cuda), _t(y, cuda), 40, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ref_i)
+    assert torch.equal(dist, ref_d)
+
+
 # (B, N, M, D, k): main-path shapes, D not a multiple of 4 (scalar path).
 MRCONV_CASES = [
     (8, 196, 196, 192, 9), (8, 3136, 196, 48, 9), (8, 784, 196, 96, 9),
@@ -111,7 +186,9 @@ def test_ops_launch_kernels_and_count(cuda):
     torch.cuda.synchronize()
     assert idx.shape == (2, 40, 4) and idx.dtype == torch.int32
     assert agg.shape == x.shape and agg.is_cuda
-    assert launch_counts() == {"digc_topk": 1, "mrconv": 1}
+    counts = launch_counts()
+    assert (counts.pop("digc_topk"), counts.pop("mrconv")) == (1, 1)
+    assert set(counts.values()) == {0}  # no variant was switched on
     with pytest.raises(TypeError):
         ops.mrconv(x.half(), x.half(), idx)
 
@@ -130,6 +207,7 @@ def test_vig_forward_on_card_matches_cpu(cuda):
     reset_launch_counts()
     out = vig.Vig(cfg, params, device=cuda)(imgs.to(cuda))
     torch.cuda.synchronize()
-    assert launch_counts() == {"digc_topk": 4, "mrconv": 4}
+    counts = launch_counts()
+    assert (counts["digc_topk"], counts["mrconv"]) == (4, 4)
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-4)

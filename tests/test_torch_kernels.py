@@ -129,21 +129,24 @@ def test_mrconv_out_of_range_ids_bitwise_jax():
     assert (out[:, 5] == -1e30).all()
 
 
-def test_mrconv_ids_in_jax_pad_rows_disagree():
-    """A known disagreement: the JAX wrapper pads M up to its co-node
-    block, so an id in [M, M_pad) gathers a zero pad row (contributing
-    -x) where the port, like the TPU kernel's contract, ignores it."""
+@pytest.mark.parametrize("m", [50, 600])
+def test_mrconv_ids_in_jax_pad_rows_match(m):
+    """The JAX wrapper pads M to its co-node block (128 for M = 50, 1024
+    for M = 600): an id in [M, M_pad) gathers a zero pad row and
+    contributes -x; an id at or beyond M_pad contributes nothing. The
+    port gives the same, bit for bit."""
     x = testing.features(7, 1, 4, 3)
-    y = testing.features(8, 1, 50, 3)
-    idx = np.array([[[0, 52], [1, 1], [2, 60], [3, 3]]], np.int32)
+    y = testing.features(8, 1, m, 3)
+    m_pad = 128 if m == 50 else 1024
+    idx = np.array([[[0, m + 2], [1, 1], [2, m_pad - 1], [3, m_pad]]], np.int32)
     ref = np.asarray(jops.mrconv(jnp.asarray(x), jnp.asarray(y),
                                  jnp.asarray(idx), interpret=True))
     out = ops.mrconv(torch.from_numpy(x), torch.from_numpy(y),
                      torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(out, ref)
     own = y[0, [0, 1, 2, 3]] - x[0]
-    np.testing.assert_array_equal(out[0], own)
-    np.testing.assert_array_equal(ref[0, [1, 3]], own[[1, 3]])
-    np.testing.assert_array_equal(ref[0, [0, 2]],
+    np.testing.assert_array_equal(out[0, [1, 3]], own[[1, 3]])
+    np.testing.assert_array_equal(out[0, [0, 2]],
                                   np.maximum(own[[0, 2]], -x[0, [0, 2]]))
 
 

@@ -155,8 +155,8 @@ def test_forward_rejects_bad_grids_like_jax():
         vig.vig_forward(params, torch.zeros(1, 62, 62, 3), cfg, digc_impl="cuda")
     with pytest.raises(vig.VigGridError, match="not ported"):
         vig.vig_forward(params, torch.zeros(1, 32, 32, 3), cfg, digc_impl="cuda")
-    with pytest.raises(ValueError, match="unknown DIGC impl: 'blocked'"):
-        vig.vig_forward(params, torch.zeros(1, 64, 64, 3), cfg)
+    # The config's default tier (blocked) runs; only the grid is checked.
+    assert vig.vig_forward(params, torch.zeros(1, 64, 64, 3), cfg).shape == (1, 5)
 
 
 # (variant, overrides): vig_ti_iso at image 96 with k 4 and depth 6, so
