@@ -32,11 +32,28 @@ Phases, each printed as it runs; any failure exits non-zero:
 9. one full-width ``vig_ti_pyr`` forward (B = 8) through the ``blocked``
    tier, its logits beside the reference tier's;
 10. ``knn_attention_mha`` at S = 2048, 4 heads, Dh = 32, 32 neighbours,
-    ``impl="cuda"`` against ``impl="reference"``.
+    ``impl="cuda"`` against ``impl="reference"``;
+11. the DIGC kernel's legacy merge against its plain version at every
+    main-path shape (B = 1 and 8): exact and packed, ``bucket_rounds``
+    1 and 2 at each shape's largest block_m that is a multiple of kd
+    within M rounded up to 128, and bf16, a positional bias and the
+    causal mask at the KNN shape;
+12. serve ``vig_ti_iso`` at full width through the tuned path: the
+    config's ``blocked`` tier with ``autotune=True`` and a tuner cache in
+    a temporary directory, on the phase-4 trace. Prints each bucket's
+    ranked candidates, measured times and chosen schedule; the legacy
+    merge must launch while tuning; a second engine on the same cache
+    tunes nothing; ``retune_buckets()`` runs on the served histogram and
+    ``buckets="auto"`` reads it back; then the trace through
+    ``bucket_rounds=2``; last, the ``"cuda"`` engine constants of the
+    cost model fitted to the blocked tier's measured times;
+13. ``tune_schedule`` for full-width ``vig_ti_pyr`` (four stages, B = 8)
+    and one forward through the tuned ``VigSchedule`` beside the
+    reference tier.
 
-Each path of phases 4, 5, 8 and 10 runs with the launch counts set to 0
-just before it and read just after; a kernel or variant of that path with
-no launch fails the run. The line before the last is the kernel summary
+Each path of phases 4, 5, 8, 10 and 12 runs with the launch counts set
+to 0 just before it and read just after; a kernel or variant of that path
+with no launch fails the run. The line before the last is the kernel summary
 as JSON (one entry per kernel and DIGC variant); the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result.
@@ -48,6 +65,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,10 +75,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import testing  # noqa: E402
-from repro_torch.core import DigcSpec, digc, grid_pos_bias  # noqa: E402
+from repro_torch.core import DigcSpec, DigcTuner, digc, grid_pos_bias  # noqa: E402
+from repro_torch.core import perfmodel  # noqa: E402
+from repro_torch.core.tuner import LEGACY_TILES, time_calls  # noqa: E402
 from repro_torch.core.knn_attention import knn_attention_mha  # noqa: E402
 from repro_torch.core.packedkey import idx_bits_for  # noqa: E402
-from repro_torch.kernels import _build, launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels import _build, launch_counts, ops, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.digc_topk import BIG, digc_topk_cuda, digc_topk_plain  # noqa: E402
 from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain  # noqa: E402
 from repro_torch.models import convert, vig  # noqa: E402
@@ -90,6 +110,8 @@ KERNELS = {
     "digc_topk.mxu_bf16": DIGC_SOURCE,
     "digc_topk.pos_bias": DIGC_SOURCE,
     "digc_topk.causal": DIGC_SOURCE,
+    "digc_topk.legacy": DIGC_SOURCE,
+    "digc_topk.bucket_rounds": DIGC_SOURCE,
     "mrconv": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mrconv.cu",
@@ -143,6 +165,7 @@ def check_digc(x, y, kd: int, pos_bias=None, **variant) -> tuple[float, int]:
     (causal) must be equal, index included, and every index in [0, M)."""
     dist, idx = digc_topk_cuda(x, y, kd, pos_bias, **variant)
     ref_d, ref_i = digc_topk_plain(x, y, kd, pos_bias, **variant)
+    in_range = (idx >= 0) & (idx < y.shape[1])
     rtol = RTOL + (2.0 ** (idx_bits_for(y.shape[1]) - 23)
                    if variant.get("packed") else 0.0)
     scale = float(x.square().sum(-1).max() + y.square().sum(-1).max())
@@ -153,7 +176,9 @@ def check_digc(x, y, kd: int, pos_bias=None, **variant) -> tuple[float, int]:
     if not (torch.equal(dist < BIG / 2, live) and torch.equal(idx[~live], ref_i[~live])
             and torch.equal(dist[~live], ref_d[~live])):
         raise AssertionError(f"BIG lanes differ from the plain version ({variant})")
-    if not ((idx >= 0) & (idx < y.shape[1])).all():
+    if variant.get("kernel_merge") == "legacy" or variant.get("bucket_rounds"):
+        in_range |= ~live  # the legacy merge's pad columns alias past M
+    if not in_range.all():
         raise AssertionError(f"an index outside [0, M) ({variant})")
     fill = -1 - torch.arange(kd, dtype=idx.dtype, device=idx.device)  # distinct
     testing.assert_topk_match(torch.where(live, idx, fill).cpu().numpy(),
@@ -355,7 +380,8 @@ def serve_iso(title: str, digc_impl, variant: dict):
     print(f"launches in the timed pass: {fired(counts)} over {ticks} ticks, "
           f"{len(reqs)} requests; per request "
           f"{ {k: v / len(reqs) for k, v in fired(counts).items()} }")
-    print(f"requests/s: {len(reqs) / seconds:.2f} ({seconds * 1e3:.1f} ms for "
+    rps = len(reqs) / seconds
+    print(f"requests/s: {rps:.2f} ({seconds * 1e3:.1f} ms for "
           f"{len(reqs)} requests)")
     for b in sorted(lat):
         print(f"bucket {b}: median tick {statistics.median(lat[b]):.2f} ms "
@@ -370,14 +396,15 @@ def serve_iso(title: str, digc_impl, variant: dict):
         ref = vig.vig_forward(params, batch, cfg, digc_impl="reference")
     worst = check_layers(capture, vig.vig_stage_plans(cfg, digc_impl), **variant)
     check_logits(out, ref, logits[:8])
-    return eng, images, counts, len(reqs), capture, worst
+    return eng, images, counts, len(reqs), capture, worst, rps
 
 
-def serving() -> tuple[int, dict]:
-    eng, images, counts, served, _, _ = serve_iso(
+def serving() -> tuple[int, dict, float]:
+    eng, images, counts, served, _, _, rps = serve_iso(
         "4. serving vig_ti_iso at full width", "cuda", {})
     profile_tick(eng, images)
-    return counts["digc_topk"], {k: v / served for k, v in counts.items()}
+    return (counts["digc_topk"], {k: v / served for k, v in counts.items()},
+            rps)
 
 
 def profile_tick(eng, images) -> None:
@@ -484,6 +511,60 @@ def stage_pos_bias(n: int, m: int) -> torch.Tensor:
     return grid_pos_bias(g, g, gc, gc, scale=POS_SCALE, device=DEV)[None]
 
 
+# The bucket_rounds spec phase 12 serves: block_m 216 is a multiple of
+# every kd of vig_ti_iso (9, 18, 27).
+BUCKET_SPEC = dict(packed=True, bucket_rounds=2, block_m=216)
+
+
+def bucket_tiles(m: int, kd: int) -> tuple[int, int | None]:
+    """bucket_rounds block_m values at one shape: the largest multiple of
+    kd within M rounded up to 128, and the served spec's (``BUCKET_SPEC``,
+    clamped as the wrapper clamps it) where it has kd buckets of two or
+    more columns, else None."""
+    top = -(-m // 128) * 128
+    served = min(BUCKET_SPEC["block_m"], top)
+    return top // kd * kd, (served if served % kd == 0 and served >= 2 * kd
+                            else None)
+
+
+def resolved_block_m(n: int, m: int, d: int, kd: int, kw: dict) -> int:
+    """The block_m a kernel call with keywords ``kw`` runs at."""
+    tiles = {a: kw[a] for a in ("block_n", "block_m", "packed",
+                                "bucket_rounds", "kernel_merge") if a in kw}
+    return ops.resolve_kernel_args(n, m, d, kd, **tiles)[1]
+
+
+def legacy_cases(n: int, m: int, d: int, kd: int) -> list:
+    """(name, kernel keywords) of every legacy-merge tile the main path
+    runs at one shape: exact and packed at the JAX default block_m and at
+    each tile the tuner offers (``LEGACY_TILES``); bucket_rounds r = 1 and
+    2 at the largest block_m of ``bucket_tiles`` and at the served one.
+    Calls that resolve to the same tiles are checked once."""
+    cases: dict = {}
+    for bn, bm in ((None, None),) + LEGACY_TILES:
+        for packed in (False, True):
+            kw = dict(kernel_merge="legacy", packed=packed, block_n=bn,
+                      block_m=bm)
+            key = (packed, 0, resolved_block_m(n, m, d, kd, kw))
+            cases.setdefault(key, ("legacy+packed" if packed else "legacy", kw))
+    for bm in filter(None, bucket_tiles(m, kd)):
+        for r in (1, 2):
+            cases.setdefault((True, r, bm), (
+                f"bucket_rounds={r}",
+                dict(packed=True, bucket_rounds=r, block_m=bm)))
+    return list(cases.values())
+
+
+def timed_legacy(m: int, kd: int) -> dict:
+    """Phase 6's legacy rows at one shape: exact and packed at the JAX
+    default block_m, bucket_rounds at the served block_m (the largest one
+    where kd does not divide it)."""
+    top, served = bucket_tiles(m, kd)
+    return {"legacy": dict(kernel_merge="legacy"),
+            "legacy+packed": dict(kernel_merge="legacy", packed=True),
+            "bucket_rounds": dict(BUCKET_SPEC, block_m=served or top)}
+
+
 def knn_inputs() -> tuple:
     """Queries, keys and values (S, H, Dh) of the KNN attention phases."""
     return tuple(to_dev(testing.features(i, KNN["seq"], KNN["heads"], KNN["dh"]))
@@ -522,12 +603,16 @@ def timings(per_request: dict) -> dict:
             lambda: digc_topk_plain(x, y, kd),
             library=lambda: torch.topk(torch.cdist(x, y), kd, dim=-1,
                                        largest=False)))
-        variants = {**PACKED_BF16, "pos_bias": dict(pos_bias=stage_pos_bias(n, m))}
+        variants = {**PACKED_BF16, "pos_bias": dict(pos_bias=stage_pos_bias(n, m)),
+                    **timed_legacy(m, kd)}
         for vname, kw in variants.items():
             rows.setdefault(f"digc_topk.{vname}", []).append(digc_row(
                 b, n, m, d, kd, lambda: digc_topk_cuda(x, y, kd, **kw),
                 lambda: digc_topk_plain(x, y, kd, **kw),
-                pos="pos_bias" in kw, bf16=kw.get("mxu_bf16", False)))
+                pos="pos_bias" in kw, bf16=kw.get("mxu_bf16", False),
+                library=(lambda: torch.topk(torch.cdist(x, y), kd, dim=-1,
+                                            largest=False))
+                if vname == "legacy" else None))
     # The KNN attention shape: heads as the batch, causal and not.
     q, k, _ = (t.transpose(0, 1).contiguous() for t in knn_inputs())
     h, seq, dh, nn = KNN["heads"], KNN["seq"], KNN["dh"], KNN["nn"]
@@ -553,13 +638,15 @@ def timings(per_request: dict) -> dict:
                                    plain_ms=plain, library_ms=lib,
                                    bound_ms=bms, bound_by=by))
     labels = {"digc_topk": "torch.cdist + torch.topk (two calls)",
+              "digc_topk.legacy": "torch.cdist + torch.topk (two calls)",
               "mrconv": "index_select + subtract + amax (three calls)"}
     for name, rs in rows.items():
-        if name in labels:
+        if name in ("digc_topk", "mrconv"):
             print(f"{name}: launches per served request {per_request[name]:.2f}; "
                   f"library = {labels[name]}")
-        else:  # launches: phases 8 and 10
-            print(f"{name}: library = none (no single PyTorch call)")
+        else:  # launches: phases 8, 10 and 12
+            print(f"{name}: library = "
+                  f"{labels.get(name, 'none (no single PyTorch call)')}")
         for r in rs:
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
             print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms (per call "
@@ -599,7 +686,7 @@ def variants_vs_plain() -> dict:
 
 def serving_variants() -> tuple[dict, dict]:
     variant = dict(packed=True, mxu_bf16=True)
-    _, _, counts, _, capture, _ = serve_iso(
+    _, _, counts, _, capture, _, _ = serve_iso(
         "8. serving vig_ti_iso through the packed bf16 kernel",
         DigcSpec(impl="cuda", **variant), variant)
     # Algorithm 1 with a relative positional bias P through the public
@@ -688,35 +775,308 @@ def knn_attention_phase() -> dict:
     return counts
 
 
+def legacy_vs_plain() -> dict:
+    phase("11. the legacy merge and bucket_rounds against their plain versions")
+    digc_shapes, _ = main_path_shapes("vig_ti_iso", "vig_ti_pyr")
+    errs = {"legacy": 0.0, "bucket_rounds": 0.0}
+    for b in (1, 8):
+        for n, m, d, kd in sorted(digc_shapes):
+            x = to_dev(testing.features(n + kd, b, n, d))
+            y = to_dev(testing.features(m + d, b, m, d))
+            for vname, kw in legacy_cases(n, m, d, kd):
+                err, swaps = check_digc(x, y, kd, **kw)
+                key = "bucket_rounds" if vname.startswith("bucket") else "legacy"
+                errs[key] = max(errs[key], err)
+                print(f"{vname:16s} B={b} N={n} M={m} D={d} kd={kd} "
+                      f"block_m={resolved_block_m(n, m, d, kd, kw)}: ok (max "
+                      f"|dist err| {err:.3g}, near-tie swaps {swaps})")
+    q, k, _ = (t.transpose(0, 1).contiguous() for t in knn_inputs())
+    h, seq, dh, nn = KNN["heads"], KNN["seq"], KNN["dh"], KNN["nn"]
+    pos = to_dev(testing.features(21, h, seq, seq))
+    for vname, kw in (("mxu_bf16", dict(mxu_bf16=True)),
+                      ("pos_bias", dict(pos_bias=pos)),
+                      ("causal", dict(causal=True)),
+                      ("causal+packed", dict(causal=True, packed=True))):
+        kw = dict(kw, kernel_merge="legacy")
+        err, swaps = check_digc(q, k, nn, **kw)
+        errs["legacy"] = max(errs["legacy"], err)
+        print(f"legacy+{vname:13s} B={h} N=M={seq} D={dh} kd={nn} "
+              f"block_m={resolved_block_m(seq, seq, dh, nn, kw)}: ok (max "
+              f"|dist err| {err:.3g}, "
+              f"near-tie swaps {swaps}; BIG lanes equal)")
+    return errs
+
+
+def print_tuning(log: list) -> None:
+    """Each measured tuning: the ranked candidates with their priors, the
+    measured call times (oracle first; device times of those within 10%
+    of the fastest) and the choice."""
+    for entry in log:
+        print(f"  workload {entry['key']}: ranked (prior us) "
+              + ", ".join(f"{describe(c)} {p * 1e6:.1f}"
+                          for c, p in entry["ranked"][:8]) + ", ...")
+        for r in entry["measured"]:
+            dev = "" if r.device_us is None else f", device {r.device_us:.1f} us"
+            print(f"    measured {describe(r.config):34s} {r.us_per_call:9.1f} us"
+                  f"{dev}{'' if r.exact_match else ' (indices differ: ineligible)'}")
+        print(f"    chosen {describe(entry['chosen'].config)}")
+
+
+def describe(c) -> str:
+    if c.impl == "cuda":
+        return f"cuda {c.kernel_merge} {c.block_n}x{c.block_m}"
+    return (f"blocked {c.merge}{'+fuse' if c.fuse_norms else ''} "
+            f"{c.block_n}x{c.block_m}")
+
+
+def expected_launches(eng, ticks: list) -> dict:
+    """Kernel launches a pass over ``ticks`` makes through the engine's
+    bucket schedules (12 DIGC blocks per tick, all in stage 0)."""
+    want: dict = {}
+    for bucket in ticks:
+        spec = eng._bucket_choice(bucket).spec_for(0)
+        if spec.impl == "cuda":
+            for name in ("digc_topk", "mrconv") + (
+                    ("digc_topk.legacy",) if spec.kernel_merge == "legacy" else ()):
+                want[name] = want.get(name, 0) + 12
+    return want
+
+
+def tuned_serving(rps_exact: float) -> tuple[dict, dict, dict]:
+    phase("12. serving vig_ti_iso at full width through the tuned path")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    images = [testing.images(uid, 1, cfg.image_size)[0] for uid in range(20)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tune.json"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = VigServeEngine(cfg, params, autotune=True, tuner_path=path,
+                             device=DEV)
+        if eng.spec.impl != "blocked":
+            raise AssertionError(f"config tier {eng.spec.impl!r}")
+        eng.warmup()
+        serve_trace(eng, images)  # each bucket's first tick tunes them all
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        tuning = launch_counts()
+        print(f"tuning and the first pass: {tune_s:.2f} s, launches "
+              f"{fired(tuning)}")
+        print_tuning(eng.tune_log)
+        if not tuning["digc_topk.legacy"]:
+            raise AssertionError("the legacy merge never launched while tuning")
+        stats = eng.stats()
+        for b, sched in sorted(stats["bucket_schedules"].items()):
+            print(f"bucket {b}: schedule {json.dumps(sched)}")
+        ticks = [eng.bucket_for(len(t)) for t in trace_ticks()]
+        reset_launch_counts()
+        reqs, lat, seconds = serve_trace(eng, images)
+        counts = launch_counts()
+        rps = len(reqs) / seconds
+        if fired(counts) != expected_launches(eng, ticks):
+            raise AssertionError(f"launches {counts}, expected "
+                                 f"{expected_launches(eng, ticks)}")
+        logits = np.stack([r.logits for r in reqs])
+        if logits.shape != (20, 1000) or not np.isfinite(logits).all():
+            raise AssertionError("tuned serving: logits not finite")
+        print(f"tuned path: {rps:.2f} requests/s ({seconds * 1e3:.1f} ms), "
+              f"phase 4 (cuda spec) in this run: {rps_exact:.2f}; launches "
+              f"{fired(counts)}")
+        for b in sorted(lat):
+            print(f"bucket {b}: median tick {statistics.median(lat[b]):.2f} ms "
+                  f"over {len(lat[b])} ticks")
+        # The same trace through the phase-4 spec and the tuned path in
+        # turns (spec, tuned, tuned, spec): the host's speed drifts
+        # between phases.
+        spec_eng = VigServeEngine(cfg, params, digc_impl="cuda", device=DEV)
+        serve_trace(spec_eng, images)
+        turns = [("cuda spec", spec_eng), ("tuned", eng), ("tuned", eng),
+                 ("cuda spec", spec_eng)]
+        print("in turns, requests/s: " + ", ".join(
+            f"{name} {20 / serve_trace(e, images)[2]:.2f}"
+            for name, e in turns))
+        # A second engine on the same cache: every schedule cached, and the
+        # only launches are those of the served schedules.
+        reset_launch_counts()
+        eng2 = VigServeEngine(cfg, params, tuner_path=path, device=DEV)
+        eng2.warmup()
+        serve_trace(eng2, images)
+        torch.cuda.synchronize()
+        second = launch_counts()
+        sources = {r.source for r in eng2.tuned} | {
+            r.source for rs in eng2._bucket_tuned.values() for r in rs}
+        if sources != {"cached"} or eng2.tune_log:
+            raise AssertionError(f"second engine tuned: {sources}")
+        if fired(second) != expected_launches(eng2, ticks):
+            raise AssertionError(f"second engine launches {second}")
+        print(f"second engine on the cache: nothing tuned, launches "
+              f"{fired(second)}")
+        new = eng2.retune_buckets()
+        auto = VigServeEngine(cfg, params, tuner_path=path, buckets="auto",
+                              device=DEV)
+        print(f"lane_hist {eng2.stats()['lane_hist']}: retune_buckets() -> "
+              f"{new}; buckets='auto' reads {auto.buckets}")
+        if auto.buckets != new:
+            raise AssertionError("buckets='auto' did not read the retuned set")
+    # The trace through the bucket_rounds spec phase 11 checked.
+    spec = DigcSpec(impl="cuda", **BUCKET_SPEC)
+    beng = VigServeEngine(cfg, params, digc_impl=spec, device=DEV)
+    serve_trace(beng, images)
+    reset_launch_counts()
+    breqs, _, bsec = serve_trace(beng, images)
+    bucket_counts = launch_counts()
+    want = 12 * len(trace_ticks())
+    expect = {"digc_topk": want, "mrconv": want, "digc_topk.packed": want,
+              "digc_topk.legacy": want, "digc_topk.bucket_rounds": want}
+    if fired(bucket_counts) != expect:
+        raise AssertionError(f"launches {bucket_counts}, expected {expect}")
+    blogits = np.stack([r.logits for r in breqs])
+    if not np.isfinite(blogits).all():
+        raise AssertionError("bucket_rounds serving: logits not finite")
+    print(f"bucket_rounds {BUCKET_SPEC}: {len(breqs) / bsec:.2f} requests/s, "
+          f"launches {fired(bucket_counts)}; logits vs the tuned path's max "
+          f"|diff| {float(np.abs(blogits - logits).max()):.3g}")
+    fit_cost_constants(eng.tune_log)
+    return tuning, bucket_counts, counts
+
+
+def fit_cost_constants(tune_log: list) -> dict:
+    """The cost model's fitted ``"cuda"`` terms. The blocked tier's
+    per-tile term (``_ENGINE_CONSTANTS["cuda"]["tile"]``): the least-squares
+    fit, through the origin, of 16 calls' times (B = 8, four main-path
+    shapes, four tilings; each the tuner's CUDA-event time) against their
+    tile counts. The kernel's per-call term (``_CUDA_KERNEL_CALL_S``): the
+    median over the tuning's measured ``cuda`` candidates of measured time
+    minus the Hopper estimate."""
+    tiles, times = [], []
+    for n, m, d, kd in ((196, 196, 192, 18), (3136, 196, 48, 9),
+                        (784, 196, 96, 9), (49, 49, 384, 27)):
+        x = to_dev(testing.features(n, 8, n, d))
+        y = to_dev(testing.features(m, 8, m, d))
+        for bn, bm, merge, fuse in ((None, m, "select", False),
+                                    (None, 64, "select", False),
+                                    (256, 128, "select", True),
+                                    (64, 64, "topk", False)):
+            spec = DigcSpec(impl="blocked", k=kd, block_n=bn, block_m=bm,
+                            merge=merge, fuse_norms=fuse or None)
+            with torch.inference_mode():
+                digc(x, y, spec=spec)
+                t = time_calls(lambda: digc(x, y, spec=spec), DEV, 5)
+            count = perfmodel.engine_cost_estimate(
+                n, m, d, kd, b=8, block_n=bn, block_m=bm, merge=merge,
+                fuse_norms=fuse, constants=dict(
+                    gemm=0.0, topk=0.0, lane=0.0, byte=0.0, tile=1.0,
+                    cache=50e6))["total_s"]
+            tiles.append(count)
+            times.append(t)
+            print(f"  blocked {(n, m, d, kd, bn, bm, merge, fuse)}: "
+                  f"{t * 1e6:.1f} us over {count:.0f} tiles")
+    tiles, times = np.array(tiles), np.array(times)
+    tile = float(tiles @ times / (tiles @ tiles))
+    print(f"engine constant 'tile' for 'cuda' (least squares over "
+          f"{len(times)} blocked-tier calls): {tile!r} s; fitted vs measured "
+          f"us: " + ", ".join(f"{p * 1e6:.0f}/{t * 1e6:.0f}"
+                             for p, t in zip(tiles * tile, times)))
+    residuals = []
+    for entry in tune_log:
+        b, n, m, d, kd = entry["shape"]
+        for r in entry["measured"]:
+            if r.config.impl == "cuda":
+                dev = perfmodel.kernel_cost_estimate(
+                    n, m, d, kd, b=b, block_n=r.config.block_n,
+                    block_m=r.config.block_m,
+                    kernel_merge=r.config.kernel_merge, backend="cuda",
+                    call_s=0.0)["total_s"]
+                residuals.append(r.us_per_call * 1e-6 - dev)
+    call = float(statistics.median(residuals))
+    print(f"kernel per-call term for 'cuda' (median of {len(residuals)} "
+          f"measured candidates minus the Hopper estimate): {call!r} s; "
+          f"residuals us: " + ", ".join(f"{v * 1e6:.1f}" for v in residuals))
+    return {"tile": tile, "kernel_call": call}
+
+
+def pyramid_tuned() -> dict:
+    phase("13. tune_schedule for vig_ti_pyr at 224^2, B = 8, and its forward")
+    cfg = vig.VIG_VARIANTS["vig_ti_pyr"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                                 device=DEV)
+    batch = to_dev(testing.images(100, 8, cfg.image_size))
+    rows: dict = {}
+    for row in vig.count_digc_work(cfg):
+        rows.setdefault(row["stage"], row)
+    with tempfile.TemporaryDirectory() as tmp:
+        tuner = DigcTuner(Path(tmp) / "pyr.json", device=DEV)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sched, results = tuner.tune_schedule(
+            [rows[s] for s in sorted(rows)],
+            spec=DigcSpec(impl="blocked", k=cfg.k), batch=8)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+    tuning = launch_counts()
+    print(f"tuned 4 stages in {tune_s:.2f} s; launches while tuning "
+          f"{fired(tuning)}")
+    print_tuning(tuner.log)
+    for st in sched.describe():
+        print(f"  stage {st['stage']}: {json.dumps(st)}")
+    reset_launch_counts()
+    with torch.inference_mode():
+        out = vig.vig_forward(params, batch, cfg, digc_impl=sched)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ref = vig.vig_forward(params, batch, cfg, digc_impl="reference")
+    plans = vig.vig_stage_plans(cfg, sched)
+    want: dict = {}
+    for p in plans:
+        if p.spec.impl == "cuda":
+            for name in ("digc_topk", "mrconv") + (
+                    ("digc_topk.legacy",) if p.spec.kernel_merge == "legacy" else ()):
+                want[name] = want.get(name, 0) + p.depth
+    if fired(counts) != want:
+        raise AssertionError(f"forward launches {counts}, expected {want}")
+    print(f"forward through the schedule: launches {fired(counts)}")
+    check_logits(out, ref)
+    return tuning
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
     err_digc = kernels_vs_plain()
-    launches, per_request = serving()
+    launches, per_request, rps_exact = serving()
     pyramid()
     rows = timings(per_request)
     err_variants = variants_vs_plain()
     served_counts, pos_counts = serving_variants()
     pyramid_blocked()
     knn_counts = knn_attention_phase()
+    err_legacy = legacy_vs_plain()
+    tuning_counts, bucket_counts, _ = tuned_serving(rps_exact)
+    pyramid_tuned()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of
     # the path that runs each: serving (phase 4; packed and bf16, phase 8),
-    # the public digc() with a bias (phase 8) and KNN attention (phase 10).
+    # the public digc() with a bias (phase 8), KNN attention (phase 10),
+    # tuning (legacy, phase 12) and serving through bucket_rounds (phase 12).
     digc_shapes, mr = (sorted(s) for s in main_path_shapes("vig_ti_iso"))
     iso = [8, *digc_shapes[len(digc_shapes) // 2]]
     knn = [KNN["heads"], KNN["seq"], KNN["seq"], KNN["dh"], KNN["nn"]]
     pick = {"digc_topk": iso, "digc_topk.packed": iso, "digc_topk.mxu_bf16": iso,
             "digc_topk.pos_bias": iso, "digc_topk.causal": knn,
+            "digc_topk.legacy": iso, "digc_topk.bucket_rounds": iso,
             "mrconv": [8, *mr[0]]}
     counts = {"digc_topk": launches, "mrconv": launches,
               "digc_topk.packed": served_counts["digc_topk.packed"],
               "digc_topk.mxu_bf16": served_counts["digc_topk.mxu_bf16"],
               "digc_topk.pos_bias": pos_counts["digc_topk.pos_bias"],
-              "digc_topk.causal": knn_counts["digc_topk.causal"]}
+              "digc_topk.causal": knn_counts["digc_topk.causal"],
+              "digc_topk.legacy": tuning_counts["digc_topk.legacy"],
+              "digc_topk.bucket_rounds": bucket_counts["digc_topk.bucket_rounds"]}
     errs = {"digc_topk": err_digc, "mrconv": 0.0,  # MRConv: bitwise checked
-            **{f"digc_topk.{v}": e for v, e in err_variants.items()}}
+            **{f"digc_topk.{v}": e for v, e in err_variants.items()},
+            **{f"digc_topk.{v}": e for v, e in err_legacy.items()}}
     summary = []
     for kname, meta in KERNELS.items():
         row = next(r for r in rows[kname] if r["shape"] == pick[kname])

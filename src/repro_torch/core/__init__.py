@@ -1,5 +1,6 @@
 # Dynamic Image Graph Construction (DIGC) in PyTorch: the spec + builder
-# registry, the reference and blocked tiers and the graph ops.
+# registry, the reference and blocked tiers, the graph ops, the tuner and
+# the cost models.
 # Batched-first: (B, N, D) in, (B, N, k) int32 out, with (N, D) promoted
 # to B=1. The ``cuda`` tier registers from ``repro_torch.kernels.ops`` on
 # first use.
@@ -34,4 +35,22 @@ from repro_torch.core.graph import (
     mean_aggregate,
     mr_aggregate,
     sum_aggregate,
+)
+from repro_torch.core.perfmodel import (
+    FPGAConfig,
+    H100Config,
+    digc_flops,
+    digc_hbm_bytes,
+    fpga_cycles,
+    fpga_latency_ms,
+    h100_digc_estimate,
+    vig_resolution_to_nodes,
+)
+from repro_torch.core.tuner import (
+    DigcTuner,
+    TileConfig,
+    VigSchedule,
+    autotune_spec,
+    host_key,
+    workload_key,
 )

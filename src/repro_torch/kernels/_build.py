@@ -33,7 +33,7 @@ _L = ctypes.c_longlong
 # c_void_p: a bare Python int would be passed as a 32-bit int.
 SIGNATURES = {
     "digc_topk_launch": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
+                         _I, _I, _I, _I, _I, _P],
     "mrconv_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 

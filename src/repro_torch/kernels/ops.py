@@ -15,7 +15,11 @@ import torch
 
 from repro_torch.core.builder import DigcSpec, GraphBuilder, promote_batch, register
 from repro_torch.device import runs_kernel
-from repro_torch.kernels.digc_topk import digc_topk_cuda, digc_topk_plain
+from repro_torch.kernels.digc_topk import (  # noqa: F401 (re-exported)
+    digc_topk_cuda,
+    digc_topk_plain,
+    resolve_kernel_args,
+)
 from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain
 
 
@@ -40,13 +44,16 @@ def mrconv(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def digc_topk(x: torch.Tensor, y: torch.Tensor, *, k: int, dilation: int = 1,
               pos_bias: Optional[torch.Tensor] = None, causal: bool = False,
               packed: bool = False, mxu_bf16: bool = False,
+              block_n: Optional[int] = None, block_m: Optional[int] = None,
+              bucket_rounds: int = 0, kernel_merge: Optional[str] = None,
               return_dists: bool = False):
     """Fused DIGC with dilated selection.
 
     x: (B, N, D) | (N, D) nodes, y co-nodes of the same rank, pos_bias
-    (B, N, M) | (N, M) or None. The kernel returns the full sorted
-    top-(k*d); the stride-d slice here keeps every d-th entry. Returns idx
-    (B, N, k) int32 [, dist] of x's rank.
+    (B, N, M) | (N, M) or None. Tiles and the merge resolve by
+    ``resolve_kernel_args``. The kernel returns the full sorted top-(k*d);
+    the stride-d slice here keeps every d-th entry. Returns idx (B, N, k)
+    int32 [, dist] of x's rank.
     """
     x3, y3, p3, squeeze = promote_batch(x, y, pos_bias)
     m = y3.shape[1]
@@ -55,7 +62,9 @@ def digc_topk(x: torch.Tensor, y: torch.Tensor, *, k: int, dilation: int = 1,
         raise ValueError(f"k*dilation={kd} exceeds number of co-nodes M={m}")
     fn = digc_topk_cuda if runs_kernel(x3) else digc_topk_plain
     dist, idx = fn(x3, y3, kd, p3, causal=causal, packed=packed,
-                   mxu_bf16=mxu_bf16)
+                   mxu_bf16=mxu_bf16, kernel_merge=kernel_merge,
+                   block_n=block_n, block_m=block_m,
+                   bucket_rounds=bucket_rounds)
     if dilation > 1:
         dist = dist[..., ::dilation].contiguous()
         idx = idx[..., ::dilation].contiguous()
@@ -67,28 +76,25 @@ def digc_topk(x: torch.Tensor, y: torch.Tensor, *, k: int, dilation: int = 1,
 
 
 def _build_cuda(x, y, pos_bias, spec: DigcSpec):
-    if spec.kernel_merge not in (None, "bitonic", "legacy"):
-        raise ValueError(f"unknown kernel_merge {spec.kernel_merge!r}; "
-                         "expected 'bitonic' or 'legacy'")
-    if spec.kernel_merge == "legacy" or (spec.bucket_rounds or 0) > 0:
-        raise NotImplementedError(
-            "the legacy kd-pass merge and bucket_rounds are not ported to the "
-            "CUDA kernel (ROADMAP queue 2; they come with the tuner)"
-        )
     return digc_topk(x, x if y is None else y, k=spec.k,
                      dilation=spec.dilation, pos_bias=pos_bias,
                      causal=spec.causal, packed=bool(spec.packed),
-                     mxu_bf16=bool(spec.mxu_bf16), return_dists=True)
+                     mxu_bf16=bool(spec.mxu_bf16), block_n=spec.block_n,
+                     block_m=spec.block_m,
+                     bucket_rounds=spec.bucket_rounds or 0,
+                     kernel_merge=spec.kernel_merge, return_dists=True)
 
 
 register(GraphBuilder(
     name="cuda",
     build=_build_cuda,
-    knobs=frozenset({"packed", "mxu_bf16", "kernel_merge", "bucket_rounds"}),
+    knobs=frozenset({"block_n", "block_m", "packed", "mxu_bf16",
+                     "bucket_rounds", "kernel_merge"}),
     supports_pos_bias=True,
     supports_causal=True,
     aggregate=mrconv,
     doc="fused CUDA kernel: distance + running top-kd in shared memory, "
-        "one block per (image, row tile); packed / bf16 / causal / pos_bias "
-        "variants; MRConv as a direct row gather",
+        "one block per (image, 16-row tile); bitonic or legacy merge every "
+        "block_m columns, bucket_rounds pre-reduction; packed / bf16 / "
+        "causal / pos_bias variants; MRConv as a direct row gather",
 ))

@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.core.builder import DigcSpec, get_builder
 from repro_torch.core.digc import digc
 from repro_torch.core.graph import mr_aggregate
+from repro_torch.core.tuner import VigSchedule
 from repro_torch.device import resolve_device
 from repro_torch.models.convert import flatten, init_params, unflatten, vig_param_spec  # noqa: F401
 
@@ -227,18 +228,23 @@ def _block_geometry(cfg: VigConfig, gb: int, m: int,
     return dil, k_eff
 
 
-def resolve_digc_spec(cfg: VigConfig,
-                      digc_impl: Union[str, DigcSpec, None]) -> DigcSpec:
+DigcChoice = Union[str, DigcSpec, VigSchedule, None]
+
+
+def resolve_digc_spec(cfg: VigConfig, digc_impl: DigcChoice,
+                      stage: int = 0) -> DigcSpec:
     """Normalize the model's DIGC choice to a DigcSpec; a spec without
-    ``k`` inherits cfg.k."""
+    ``k`` inherits cfg.k. A ``VigSchedule`` (per-stage tuned specs,
+    ``core.tuner``) resolves to its entry for ``stage``."""
     choice = digc_impl if digc_impl is not None else cfg.digc_impl
+    if isinstance(choice, VigSchedule):
+        choice = choice.spec_for(stage)
     if isinstance(choice, DigcSpec):
         return choice if choice.k is not None else choice.replace(k=cfg.k)
     return DigcSpec(impl=choice, k=cfg.k)
 
 
-def vig_stage_plans(cfg: VigConfig,
-                    digc_impl: Union[str, DigcSpec, None] = None,
+def vig_stage_plans(cfg: VigConfig, digc_impl: DigcChoice = None,
                     *, grid: Optional[int] = None) -> tuple[StagePlan, ...]:
     """Materialize the stage pipeline for a model + DIGC choice.
 
@@ -252,7 +258,7 @@ def vig_stage_plans(cfg: VigConfig,
         raise VigGridError(f"serving grid must be >= 1; got {grid}")
     gb = 0
     for si, depth in enumerate(cfg.depths):
-        spec = resolve_digc_spec(cfg, digc_impl)
+        spec = resolve_digc_spec(cfg, digc_impl, si)
         r = cfg.reduce_ratios[si] if si < len(cfg.reduce_ratios) else 1
         if r > 1 and grid % r:
             raise VigGridError(
@@ -333,13 +339,14 @@ def run_stage(stage_params: dict, x: torch.Tensor, cfg: VigConfig,
 
 
 def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
-                digc_impl: Union[str, DigcSpec, None] = None,
+                digc_impl: DigcChoice = None,
                 digc_capture: Optional[list] = None) -> torch.Tensor:
     """images (B, H, W, C) -> class logits (B, num_classes).
 
     patchify -> stem + positional embedding -> per stage, Grapher blocks
     -> 2x2 downsample between stages -> mean pool -> head. Runs on the
-    device of ``params`` and ``images``. ``digc_capture`` collects every
+    device of ``params`` and ``images``. ``digc_impl`` is a builder name,
+    a DigcSpec or a ``VigSchedule`` resolved per stage. ``digc_capture`` collects every
     DIGC call's ``(layer_key, nodes, co_nodes)``.
     """
     b, hh, ww, _ = images.shape
@@ -388,7 +395,7 @@ class Vig(nn.Module):
     """
 
     def __init__(self, cfg: VigConfig, params: Optional[dict] = None, *,
-                 digc_impl: Union[str, DigcSpec] = "cuda", seed: int = 0,
+                 digc_impl: DigcChoice = "cuda", seed: int = 0,
                  device="cuda"):
         super().__init__()
         dev = resolve_device(device)

@@ -1,44 +1,69 @@
 """Numpy-only helpers shared by the tests and ``chip_smoke.py``: seeded
-inputs and the near-tie-tolerant top-k comparison."""
+inputs and the near-tie-tolerant top-k comparison (which the tuner's
+correctness gate uses too)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
 
-def assert_topk_match(idx_a, dist_a, idx_b, dist_b, rtol: float = 1e-5,
-                      atol: float = 1e-5) -> None:
-    """Hold a top-k result (a) against a reference (b), each (..., N, k).
+def topk_mismatch(idx_a, dist_a, idx_b, dist_b, rtol: float = 1e-5,
+                  atol: float = 1e-5, exact_rows: bool = False
+                  ) -> Optional[str]:
+    """Why a top-k result (a) does not match a reference (b), each
+    (..., N, k), or None when it matches.
 
     Distances must be allclose. Indices must be equal, except where the
     two entries are a near-tie: the index a chose sits in b's row at a
     distance within the tolerance of b's distance at that position (or,
     absent from b's row, a's distance there is within the tolerance, as
-    checked above). No row of a may repeat an index.
+    checked above). With ``exact_rows`` (both are the exact top-k of
+    whole rows, no lane masked), an index absent from b's row must also
+    sit where b's distance ties b's last one within twice the tolerance:
+    a kept a neighbour that b cut at the end of the row, and each side
+    rounded that distance once. No row of a may repeat an index.
     """
     idx_a, idx_b = np.asarray(idx_a), np.asarray(idx_b)
     dist_a = np.asarray(dist_a, np.float64)
     dist_b = np.asarray(dist_b, np.float64)
     if idx_a.shape != idx_b.shape or dist_a.shape != dist_b.shape:
-        raise AssertionError(f"shapes differ: idx {idx_a.shape} vs "
-                             f"{idx_b.shape}, dist {dist_a.shape} vs "
-                             f"{dist_b.shape}")
-    np.testing.assert_allclose(dist_a, dist_b, rtol=rtol, atol=atol)
+        return (f"shapes differ: idx {idx_a.shape} vs {idx_b.shape}, dist "
+                f"{dist_a.shape} vs {dist_b.shape}")
+    far = ~np.isclose(dist_a, dist_b, rtol=rtol, atol=atol)
+    if far.any():
+        at = tuple(int(i) for i in np.argwhere(far)[0])
+        return (f"distances differ beyond rtol={rtol}, atol={atol}: "
+                f"{int(far.sum())} entries, first at {at}: {dist_a[at]} vs "
+                f"{dist_b[at]}")
     rows_a = idx_a.reshape(-1, idx_a.shape[-1])
     srt = np.sort(rows_a, axis=-1)
     if (srt[:, 1:] == srt[:, :-1]).any():
-        raise AssertionError("a row of the result repeats an index")
+        return "a row of the result repeats an index"
     rows_b = idx_b.reshape(rows_a.shape)
     db = dist_b.reshape(rows_a.shape)
     for r, j in zip(*np.nonzero(rows_a != rows_b)):
         pos = np.nonzero(rows_b[r] == rows_a[r, j])[0]
-        if pos.size and not np.isclose(db[r, pos[0]], db[r, j], rtol=rtol,
-                                       atol=atol):
-            raise AssertionError(
-                f"row {r} position {j}: index {rows_a[r, j]} vs reference "
-                f"{rows_b[r, j]} is no near-tie (reference distances "
-                f"{db[r, pos[0]]} and {db[r, j]})"
-            )
+        if pos.size:
+            tie = np.isclose(db[r, pos[0]], db[r, j], rtol=rtol, atol=atol)
+        else:
+            tie = not exact_rows or np.isclose(db[r, -1], db[r, j],
+                                               rtol=2 * rtol, atol=2 * atol)
+        if not tie:
+            return (f"row {r} position {j}: index {rows_a[r, j]} vs reference "
+                    f"{rows_b[r, j]} is no near-tie (reference distances "
+                    f"{db[r, pos[0]] if pos.size else 'absent'} and "
+                    f"{db[r, j]}, last {db[r, -1]})")
+    return None
+
+
+def assert_topk_match(idx_a, dist_a, idx_b, dist_b, rtol: float = 1e-5,
+                      atol: float = 1e-5) -> None:
+    """Raise AssertionError where ``topk_mismatch`` finds a reason."""
+    why = topk_mismatch(idx_a, dist_a, idx_b, dist_b, rtol=rtol, atol=atol)
+    if why is not None:
+        raise AssertionError(why)
 
 
 def features(seed: int, *shape: int) -> np.ndarray:

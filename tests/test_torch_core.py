@@ -37,11 +37,12 @@ def test_registry_lists_ported_tiers_and_rejects_the_rest():
         builder.get_builder("cluster")
 
 
-# Knobs of other tiers (the JAX pallas builder's tiles and interpret mode,
-# the engine's merge knobs, stale-graph reuse) that the kernel does not take.
+# Knobs of other tiers (the engine's group width and merge knobs, the JAX
+# pallas builder's interpret mode, stale-graph reuse) that the kernel does
+# not take.
 @pytest.mark.parametrize("knob", [
-    {"block_m": 128}, {"interpret": True}, {"merge": "select"},
-    {"fuse_norms": True}, {"block_n": 64}, {"reuse": "layer"},
+    {"group_w": 8}, {"interpret": True}, {"merge": "select"},
+    {"fuse_norms": True}, {"max_stale": 2}, {"reuse": "layer"},
 ])
 def test_cuda_builder_rejects_unported_knobs(knob):
     x = torch.zeros(1, 8, 4)

@@ -23,6 +23,7 @@ from repro_torch import testing  # noqa: E402
 from repro_torch.core.digc import BIG  # noqa: E402
 from repro_torch.core.graph import grid_pos_bias  # noqa: E402
 from repro_torch.core.packedkey import idx_bits_for  # noqa: E402
+from repro_torch.core.tuner import LEGACY_TILES  # noqa: E402
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.digc_topk import digc_topk_cuda, digc_topk_plain  # noqa: E402
 from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain  # noqa: E402
@@ -211,3 +212,84 @@ def test_vig_forward_on_card_matches_cpu(cuda):
     assert (counts["digc_topk"], counts["mrconv"]) == (4, 4)
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# The legacy merge and bucket_rounds: name -> (digc_topk keywords, block_m
+# or None for the wrapper's default). The tuner's legacy tiles
+# (``LEGACY_TILES``) and the 216-column bucket spec chip_smoke.py serves
+# are among them. Bucket cases need block_m % kd == 0: "kd" is the
+# largest multiple of kd within ceil_to(M, 128), "216" the largest within
+# min(216, ceil_to(M, 128)) (216 itself at kd = 9, 18, 27).
+LEGACY_VARIANTS = {
+    "legacy": (dict(kernel_merge="legacy"), None),
+    "legacy_packed": (dict(kernel_merge="legacy", packed=True), None),
+    "legacy_causal": (dict(kernel_merge="legacy", causal=True), None),
+    "legacy_causal_packed": (dict(kernel_merge="legacy", causal=True,
+                                  packed=True), 64),
+    "legacy_bf16_pos": (dict(kernel_merge="legacy", mxu_bf16=True,
+                             pos_bias="pos"), 128),
+    **{f"legacy_tuner_{bm}{'_packed' if p else ''}": (
+        dict(kernel_merge="legacy", block_n=bn, packed=p), bm)
+       for bn, bm in LEGACY_TILES for p in (False, True)},
+    "bucket1": (dict(packed=True, bucket_rounds=1), "kd"),
+    "bucket2": (dict(packed=True, bucket_rounds=2, causal=True), "kd"),
+    "bucket2_216": (dict(packed=True, bucket_rounds=2), "216"),
+    "bucket3_bf16": (dict(packed=True, bucket_rounds=3, mxu_bf16=True), "kd"),
+}
+LEGACY_SHAPES = [(2, 196, 196, 192, 18), (2, 784, 196, 96, 9),
+                 (3, 33, 70, 7, 5), (2, 40, 40, 8, 16),
+                 (4, 2048, 2048, 32, 32)]
+
+
+def _legacy_args(b, n, m, d, kd, kw, block_m, dev):
+    """Kernel keywords for one case (the wrappers resolve the tiles)."""
+    kw = dict(kw)
+    if kw.get("pos_bias") == "pos":
+        kw["pos_bias"] = _t(testing.features(n * m, b, n, m), dev)
+    if block_m in ("kd", "216"):
+        top = -(-m // 128) * 128
+        block_m = (top if block_m == "kd" else min(216, top)) // kd * kd
+    return dict(kw, block_m=block_m)
+
+
+@pytest.mark.parametrize("b,n,m,d,kd", LEGACY_SHAPES)
+@pytest.mark.parametrize("name", sorted(LEGACY_VARIANTS))
+def test_digc_topk_legacy_matches_plain(cuda, name, b, n, m, d, kd):
+    kw = _legacy_args(b, n, m, d, kd, *LEGACY_VARIANTS[name], cuda)
+    x = _t(testing.features(n + kd, b, n, d), cuda)
+    y = _t(testing.features(m + d, b, m, d), cuda)
+    reset_launch_counts()
+    dist, idx = digc_topk_cuda(x, y, kd, **kw)
+    ref_d, ref_i = digc_topk_plain(x, y, kd, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["digc_topk"] == counts["digc_topk.legacy"] == 1
+    assert counts["digc_topk.bucket_rounds"] == int("bucket_rounds" in kw)
+    # BIG, pad and INT_BIG lanes equal bit for bit, indices included.
+    live = ref_d < BIG / 2
+    assert torch.equal(dist >= BIG / 2, ~live)
+    assert torch.equal(idx[~live], ref_i[~live])
+    assert torch.equal(dist[~live], ref_d[~live])
+    rtol = RTOL + (2.0 ** (idx_bits_for(m) - 23) if kw.get("packed") else 0.0)
+    fill = -1 - torch.arange(kd, dtype=torch.int32, device=cuda)  # distinct
+    testing.assert_topk_match(torch.where(live, idx, fill).cpu(),
+                              torch.where(live, dist, 0).cpu(),
+                              torch.where(live, ref_i, fill).cpu(),
+                              torch.where(live, ref_d, 0).cpu(), rtol=rtol,
+                              atol=ATOL + rtol * float(x.square().sum(-1).max()
+                                                       + y.square().sum(-1).max()))
+
+
+@pytest.mark.parametrize("name", sorted(LEGACY_VARIANTS))
+def test_digc_topk_legacy_exact_ties(cuda, name):
+    b, n, m, d, kd = 2, 70, 230, 12, 40
+    kw = _legacy_args(b, n, m, d, kd, *LEGACY_VARIANTS[name], cuda)
+    if kw.get("pos_bias") is not None:
+        p = np.random.default_rng(1).integers(-3, 4, (b, n, m))
+        kw["pos_bias"] = _t(p.astype(np.float32), cuda)
+    x, y = testing.tied_inputs(3, b, n, m, d)
+    dist, idx = digc_topk_cuda(_t(x, cuda), _t(y, cuda), kd, **kw)
+    ref_d, ref_i = digc_topk_plain(_t(x, cuda), _t(y, cuda), kd, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ref_i)
+    assert torch.equal(dist, ref_d)
