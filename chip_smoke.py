@@ -17,10 +17,15 @@ Phases, each printed as it runs; any failure exits non-zero:
    launch counts and each layer's kernel output on the captured features;
 5. one batched ``vig_ti_pyr`` forward at 224^2 with the same checks,
    then both models, narrowed, against the reference tier end to end;
+   the B = 8 forward's time (CUDA events, after a warm-up) and the DIGC
+   and MRConv kernels' share of its device time (one profiled forward);
 6. time each kernel with CUDA events beside its bound, its plain version
    and the PyTorch library calls that compute the same function, and
    profile one serving tick (device busy share, time by operator); the
-   DIGC kernel's variants are timed at the same shapes;
+   DIGC kernel's variants are timed at the same shapes. A DIGC row's
+   bound takes the product at the rate its design uses (three TF32
+   tensor-core products per fp32 product, or one bf16 product), printed
+   beside the fp32 CUDA-core bound;
 7. each DIGC variant against its plain version at every main-path shape:
    packed keys, bf16 operands and both together (B = 1 and 8), a
    ``grid_pos_bias`` positional bias, and the causal mask at the KNN
@@ -86,9 +91,10 @@ from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain  # noqa: E402
 from repro_torch.models import convert, vig  # noqa: E402
 from repro_torch.serve.engine import VigRequest, VigServeEngine  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
-# the tensor cores, HBM3 rate.
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32
+# and bf16 on the tensor cores, HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # Distances are fp32 sums taken in two orders (the kernel's FMA chain vs
@@ -502,6 +508,44 @@ def pyramid() -> None:
     check_logits(out, ref)
     check_layers(capture, plans)
     small_forwards()
+    forward_time(params, batch, cfg)
+
+
+def forward_time(params, batch, cfg) -> dict:
+    """The B = 8 forward through the ``cuda`` tier: CUDA events around
+    five forwards as Python issues them, after two of warm-up (so the
+    host's launch pace is in this time), then one forward under
+    torch.profiler for its device time (the sum over its kernels) and
+    the DIGC and MRConv kernels' share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def forward():
+        return vig.vig_forward(params, batch, cfg, digc_impl="cuda")
+
+    with torch.inference_mode():
+        for _ in range(2):
+            forward()
+        ms = _events_ms(forward, 5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels)
+    digc_us = sum(e.self_device_time_total for e in kernels
+                  if "digc_topk_kernel" in e.key or "digc_legacy_kernel" in e.key)
+    mr_us = sum(e.self_device_time_total for e in kernels
+                if "mrconv_kernel" in e.key)
+    if total <= 0 or digc_us <= 0 or mr_us <= 0:
+        raise AssertionError("the profiler saw no device time for the kernels")
+    print(f"B = 8 forward (cuda tier): {ms:.3f} ms a forward by CUDA events "
+          f"as Python issues them; profiled forward's device time "
+          f"{total / 1e3:.3f} ms: DIGC kernels {digc_us / 1e3:.3f} ms "
+          f"({100 * digc_us / total:.1f}%), MRConv {mr_us / 1e3:.3f} ms "
+          f"({100 * mr_us / total:.1f}%)")
+    return dict(ms=ms, device_ms=total / 1e3,
+                digc_ms=digc_us / 1e3, mrconv_ms=mr_us / 1e3)
 
 
 def stage_pos_bias(n: int, m: int) -> torch.Tensor:
@@ -576,22 +620,25 @@ def digc_row(b, n, m, d, kd, fn, plain, *, pairs=None, pos=False, bf16=False,
     """Kernel, call, plain and library times beside the bound: each input
     read once (x, y fp32; a shared (N, M) bias), each output written once;
     2 D operations per (row, column) pair the run needs (all of them, or
-    the causal triangle), at the fp32 rate or, for bf16 operands, the
-    tensor cores' bf16 rate."""
+    the causal triangle), at the rate the kernel's design takes them:
+    three TF32 tensor-core products per fp32 product (split TF32), or one
+    bf16 product for bf16 operands. ``bound_fp32_ms`` is the same work at
+    the fp32 CUDA-core rate."""
     ms, call = time_ms(fn)
     plain_ms, _ = time_ms(plain)
     lib = time_ms(library)[0] if library is not None else None
     pairs = n * m if pairs is None else pairs
     nbytes = 4.0 * b * (n + m) * d + 8.0 * b * n * kd + (4.0 * n * m if pos else 0)
-    bms, by = bound(2.0 * b * pairs * d, nbytes,
-                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+    flops = 2.0 * b * pairs * d
+    bms, by = (bound(flops, nbytes, PEAK_BF16_FLOPS) if bf16
+               else bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS))
     return dict(shape=[b, n, m, d, kd], ms=ms, call_ms=call, plain_ms=plain_ms,
-                library_ms=lib, bound_ms=bms, bound_by=by)
+                library_ms=lib, bound_ms=bms, bound_by=by,
+                bound_fp32_ms=bound(flops, nbytes)[0])
 
 
 def timings(per_request: dict) -> dict:
     phase("6. times at the main-path shapes (B = 8), CUDA events")
-    calibrate_sleep()
     rows: dict[str, list] = {"digc_topk": [], "mrconv": []}
     b = 8
     digc_shapes, mr = main_path_shapes("vig_ti_iso", "vig_ti_pyr")
@@ -647,12 +694,17 @@ def timings(per_request: dict) -> dict:
         else:  # launches: phases 8, 10 and 12
             print(f"{name}: library = "
                   f"{labels.get(name, 'none (no single PyTorch call)')}")
+        rate = ("bf16 tensor cores" if name.endswith("mxu_bf16")
+                else "split TF32 tensor cores" if name.startswith("digc")
+                else "HBM")
         for r in rs:
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            fp32 = ("" if "bound_fp32_ms" not in r else
+                    f", fp32 CUDA-core bound {r['bound_fp32_ms']:.4f} ms")
             print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms (per call "
                   f"from Python {r['call_ms']:.4f} ms), bound {r['bound_ms']:.4f} "
-                  f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
-                  f"{lib}")
+                  f"ms ({r['bound_by']}; {rate}){fp32}, plain "
+                  f"{r['plain_ms']:.4f} ms, library {lib}")
     return rows
 
 
@@ -986,7 +1038,8 @@ def fit_cost_constants(tune_log: list) -> dict:
                 dev = perfmodel.kernel_cost_estimate(
                     n, m, d, kd, b=b, block_n=r.config.block_n,
                     block_m=r.config.block_m,
-                    kernel_merge=r.config.kernel_merge, backend="cuda",
+                    kernel_merge=r.config.kernel_merge,
+                    mxu_bf16=entry["mxu_bf16"], backend="cuda",
                     call_s=0.0)["total_s"]
                 residuals.append(r.us_per_call * 1e-6 - dev)
     call = float(statistics.median(residuals))
@@ -1043,6 +1096,7 @@ def pyramid_tuned() -> dict:
 def main() -> None:
     name, smi = card_and_software()
     build()
+    calibrate_sleep()
     err_digc = kernels_vs_plain()
     launches, per_request, rps_exact = serving()
     pyramid()

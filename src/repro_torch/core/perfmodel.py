@@ -11,9 +11,10 @@ P_row=P_col=14, P_vec=8, P_sort=7, Q=7 -> Table I reports
 DCM=4704, LSM=3920, GMM=4704, NSM=224.
 
 The Hopper model estimates the same quantities for the CUDA kernel
-(``kernels/csrc/digc_topk.cu``) at an H100's data-sheet rates: the fp32
-product on the CUDA cores, the bytes the kernel must move, and the
-integer lane work of its merge. The tuner ranks candidates with it
+(``kernels/csrc/digc_topk.cu``) at an H100's data-sheet rates: the
+product on the tensor cores (three TF32 products per fp32 product, or
+one bf16 product), the bytes the kernel must move, and the integer lane
+work of its merge. The tuner ranks candidates with it
 before it measures them.
 """
 
@@ -66,6 +67,8 @@ class H100Config:
     """One NVIDIA H100 SXM (data sheet and Hopper white paper)."""
 
     peak_fp32_flops: float = 67e12  # CUDA cores, no tensor cores
+    peak_tf32_flops: float = 495e12  # tensor cores, dense
+    peak_bf16_flops: float = 989e12  # tensor cores, dense
     hbm_bw: float = 3.35e12  # bytes/s
     sms: int = 132
     int32_lanes_per_sm: int = 64  # int32 operations per SM per cycle
@@ -79,23 +82,42 @@ class H100Config:
         return self.sms * self.int32_lanes_per_sm * self.clock_hz
 
 
-# The CUDA DIGC kernel's geometry (csrc/digc_topk.cu). A block of 256
-# threads owns BN query rows and stages CHUNK co-node columns x 64
-# features per step; its registers (128 a thread at most,
-# __launch_bounds__(256, 2)) allow two blocks per SM. Static shared
-# memory, at most: the x, y and distance staging (rows of 65 floats) and
-# the bitonic merge's 64-key sort scratch per warp (the legacy kernel
-# keeps a candidate count per row instead). The rest of a block's half of
-# the SM holds, per row, the running list of kd keys and, for the legacy
-# merge, a buffer of candidates between merges, plus one kd-key output
-# list per warp.
+# The CUDA DIGC kernel's geometry (csrc/digc_topk.cu). A block owns BN
+# query rows and walks co-node chunks of CHUNK columns; y streams through
+# a shared-memory ring of RING pieces of CHUNK columns x PIECE_D
+# features (half that in 8-warp blocks), x stays staged, X_SLAB features
+# at a time. A block has 16
+# warps (one block a SM) where the grid fits on the SMs, else 8 (two a
+# SM); warp w multiplies the tile's 16 x 8 slice w % 8 (with 16 warps,
+# over every other MMA step, the halves' sums meeting in shared memory).
+# The lists and the legacy buffers get what is left of the SM's shared
+# memory beside one 16-warp block.
 CUDA_BLOCK_N = 16
 CUDA_CHUNK_M = 64
-CUDA_WARPS = 8
-CUDA_BLOCKS_PER_SM = 2
+CUDA_PIECE_D = 128  # 16-warp blocks; 64 for 8-warp blocks
+CUDA_X_SLAB = 256
+CUDA_RING = 3
+CUDA_WARPS = 16
+CUDA_BLOCKS_PER_SM = 1
 CUDA_MAX_KD = 256
-CUDA_STATIC_SMEM = (2 * CUDA_BLOCK_N + CUDA_CHUNK_M) * 65 * 4 + CUDA_WARPS * 64 * 8
 CUDA_MAX_BUFFER = 512
+
+
+def cuda_static_smem(legacy: bool) -> int:
+    """Shared memory of one block beside its lists, at most (over D, both
+    operand types and both block sizes): the y ring (rows of PIECE_D + 16
+    floats, the bf16 stride), x at its widest slab (a (hi, lo) pair per
+    feature plus 16 floats a row), the distance tile (rows of CHUNK + 8
+    floats) and the row norms, the hand-over between the two halves of
+    the warps (8 slices x 5 x 32 floats); the bitonic merge adds its
+    64-key sort scratch per warp, the legacy merge a candidate count per
+    row."""
+    ring = CUDA_RING * CUDA_CHUNK_M * (CUDA_PIECE_D + 16) * 4
+    x = CUDA_BLOCK_N * (2 * CUDA_X_SLAB + 16) * 4
+    tile = CUDA_BLOCK_N * (CUDA_CHUNK_M + 8 + 1) * 4
+    partials = 8 * 5 * 32 * 4
+    merge = CUDA_BLOCK_N * 4 if legacy else CUDA_WARPS * CUDA_CHUNK_M * 8
+    return ring + x + tile + partials + merge
 
 
 def cuda_dynamic_smem(kd: int, buffer: int, key_bytes: int,
@@ -109,9 +131,9 @@ def cuda_dynamic_smem(kd: int, buffer: int, key_bytes: int,
 def cuda_merge_buffer(kd: int, key_bytes: int = 8,
                       cfg: H100Config = H100Config()) -> int:
     """Candidates a row can buffer between merges: the largest multiple
-    of CHUNK (at most CUDA_MAX_BUFFER) that keeps a block within its
-    share of the SM's shared memory at CUDA_BLOCKS_PER_SM blocks."""
-    budget = cfg.smem_per_sm // CUDA_BLOCKS_PER_SM - CUDA_STATIC_SMEM
+    of CHUNK (at most CUDA_MAX_BUFFER) that keeps a legacy block within
+    its share of the SM's shared memory at CUDA_BLOCKS_PER_SM blocks."""
+    budget = cfg.smem_per_sm // CUDA_BLOCKS_PER_SM - cuda_static_smem(True)
     room = budget // key_bytes - (CUDA_BLOCK_N + CUDA_WARPS) * kd
     buf = (room // CUDA_BLOCK_N) // CUDA_CHUNK_M * CUDA_CHUNK_M
     return max(CUDA_CHUNK_M, min(CUDA_MAX_BUFFER, buf))
@@ -145,11 +167,13 @@ def h100_digc_estimate(n: int, m: int, d: int, k: int, dilation: int,
                        block_n: int = CUDA_BLOCK_N, block_m: int = CUDA_CHUNK_M,
                        cfg: H100Config = H100Config(), *,
                        packed: bool = False, bucket_rounds: int = 0,
-                       kernel_merge: str = "bitonic") -> dict:
+                       kernel_merge: str = "bitonic",
+                       mxu_bf16: bool = False) -> dict:
     """Roofline-style estimate of one image's CUDA DIGC kernel.
 
-    * compute: the fp32 product on the CUDA cores (bf16 operands are
-      multiplied there in fp32 too; the tensor cores are later work).
+    * compute: the product on the tensor cores, as the kernel takes it:
+      three TF32 products (split TF32) per fp32 product at the TF32 rate,
+      or one bf16 product at the bf16 rate with ``mxu_bf16``.
     * memory: x once, y once per row block, the (dist, idx) outputs.
     * merge, in int32 lane operations (one compare, select or shuffle is
       one operation per lane, ~3 per key visited):
@@ -165,7 +189,8 @@ def h100_digc_estimate(n: int, m: int, d: int, k: int, dilation: int,
     """
     kd = k * dilation
     flops = digc_flops(n, m, d)
-    compute_s = flops / cfg.peak_fp32_flops
+    compute_s = (flops / cfg.peak_bf16_flops if mxu_bf16
+                 else 3 * flops / cfg.peak_tf32_flops)
     bytes_moved = digc_hbm_bytes(n, m, d, kd, block_n=block_n, streaming=True)
     memory_s = bytes_moved / cfg.hbm_bw
     key_ops = 3 if packed else 6
@@ -352,8 +377,9 @@ _CPU_PLAIN_ELEM_S = 2e-8
 # does not see: the Python wrapper's checks and the launch, and a
 # launch's ramp. Fitted by ``chip_smoke.py`` phase 12 as the median, over
 # its measured ``cuda`` candidates, of measured time minus the Hopper
-# estimate, on one NVIDIA H100 80GB HBM3 at a 700 W power limit.
-_CUDA_KERNEL_CALL_S = 5.532494685438868e-05
+# estimate (tensor-core compute term), on one NVIDIA H100 80GB HBM3 at a
+# 700 W power limit.
+_CUDA_KERNEL_CALL_S = 5.781054398802515e-05
 
 
 def kernel_cost_estimate(
@@ -368,6 +394,7 @@ def kernel_cost_estimate(
     kernel_merge: str = "bitonic",
     packed: bool = False,
     bucket_rounds: int = 0,
+    mxu_bf16: bool = False,
     backend: str = "cpu",
     call_s: float | None = None,
 ) -> dict:
@@ -383,6 +410,7 @@ def kernel_cost_estimate(
     est = h100_digc_estimate(
         n, m, d, kd, 1, block_n=block_n, block_m=block_m, packed=packed,
         bucket_rounds=bucket_rounds, kernel_merge=kernel_merge,
+        mxu_bf16=mxu_bf16,
     )
     call = _CUDA_KERNEL_CALL_S if call_s is None else call_s
     return {"total_s": est["latency_s"] * b + call, "device_s":

@@ -432,14 +432,16 @@ class DigcTuner:
                                   kernel_merge="legacy"))
         return out
 
-    def prior(self, cfg: TileConfig, *, b, n, m, d, kd) -> float:
-        """The cost model's seconds for one call of ``cfg``."""
+    def prior(self, cfg: TileConfig, *, b, n, m, d, kd,
+              mxu_bf16: bool = False) -> float:
+        """The cost model's seconds for one call of ``cfg`` (a ``cuda``
+        config multiplies bf16 operands under ``mxu_bf16``)."""
         if cfg.impl == "cuda":
             return kernel_cost_estimate(
                 n, m, d, kd, b=b, block_n=cfg.block_n or CUDA_BLOCK_N,
                 block_m=cfg.block_m,
                 kernel_merge=cfg.kernel_merge or "bitonic",
-                backend=self.backend,
+                mxu_bf16=mxu_bf16, backend=self.backend,
             )["total_s"]
         return engine_cost_estimate(
             n, m, d, kd, b=b, block_n=cfg.block_n, block_m=cfg.block_m,
@@ -448,10 +450,11 @@ class DigcTuner:
         )["total_s"]
 
     def rank(
-        self, cands: list[TileConfig], *, b, n, m, d, kd
+        self, cands: list[TileConfig], *, b, n, m, d, kd,
+        mxu_bf16: bool = False,
     ) -> list[TileConfig]:
-        return sorted(cands, key=lambda c: self.prior(c, b=b, n=n, m=m,
-                                                      d=d, kd=kd))
+        return sorted(cands, key=lambda c: self.prior(
+            c, b=b, n=n, m=m, d=d, kd=kd, mxu_bf16=mxu_bf16))
 
     # -- persistence ----------------------------------------------------
 
@@ -557,9 +560,10 @@ class DigcTuner:
             if cached is not None:
                 return cached.config.apply(spec), cached
 
+        bf16 = bool(spec.mxu_bf16)
         ranked = self.rank(
             self.candidates(n, m, d=d, kd=kd, allow_approx=allow_approx),
-            b=b, n=n, m=m, d=d, kd=kd,
+            b=b, n=n, m=m, d=d, kd=kd, mxu_bf16=bf16,
         )
         cands = ranked[: self.max_measure]
 
@@ -611,7 +615,9 @@ class DigcTuner:
         self.log.append({
             "key": key,
             "shape": (b, n, m, d, kd),
-            "ranked": [(c, self.prior(c, b=b, n=n, m=m, d=d, kd=kd))
+            "mxu_bf16": bf16,
+            "ranked": [(c, self.prior(c, b=b, n=n, m=m, d=d, kd=kd,
+                                      mxu_bf16=bf16))
                        for c in ranked],
             "measured": results,
             "chosen": best,

@@ -5,11 +5,14 @@ sources at once, and the objects are linked into one shared library with
 a plain C interface that ``ctypes`` loads. No source includes PyTorch's
 headers, which keeps the build short. The library is built once per
 process, at first use, into ``build/repro_torch/`` at the root of the
-checkout; a failed build raises with nvcc's messages.
+checkout; a failed build raises with nvcc's messages. ``build`` takes
+another source directory (an earlier commit's, to compare two builds in
+one process), and the wrappers launch that build inside ``use``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -63,9 +66,9 @@ def nvcc_path() -> str:
     )
 
 
-def _compile(nvcc: str, tmp: Path) -> tuple[list[Path], dict]:
+def _compile(nvcc: str, csrc: Path, tmp: Path) -> tuple[list[Path], dict]:
     """Compile every source in parallel; return objects and reports."""
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(csrc.glob("*.cu"))
     procs = []
     try:
         for src in sources:
@@ -91,13 +94,14 @@ def _compile(nvcc: str, tmp: Path) -> tuple[list[Path], dict]:
 
 
 @functools.cache
-def load() -> KernelLibrary:
-    """Build (once per process) and load the kernel library."""
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> KernelLibrary:
+    """Build (once per process and directory) and load the kernel library
+    of the sources in ``csrc``."""
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, reports = _compile(nvcc, Path(tmp))
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        objs, reports = _compile(nvcc, csrc, Path(tmp))
         so_tmp = Path(tmp) / LIB_NAME
         link = subprocess.run(
             [nvcc, *ARCH, "-shared", "-o", str(so_tmp), *map(str, objs)],
@@ -105,7 +109,7 @@ def load() -> KernelLibrary:
         )
         if link.returncode:
             raise KernelBuildError(f"nvcc link failed:\n{link.stderr}")
-        path = BUILD_DIR / LIB_NAME
+        path = build_dir / LIB_NAME
         # Atomic: a process that loaded an earlier build keeps its copy.
         os.replace(so_tmp, path)
     seconds = time.perf_counter() - t0
@@ -118,6 +122,25 @@ def load() -> KernelLibrary:
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib=lib, path=path, build_seconds=seconds,
                          ptxas=reports)
+
+
+_active: list[KernelLibrary] = []  # innermost ``use`` last
+
+
+def load() -> KernelLibrary:
+    """The library the wrappers launch: the innermost ``use``'s, else this
+    checkout's sources, built once per process."""
+    return _active[-1] if _active else build()
+
+
+@contextlib.contextmanager
+def use(library: KernelLibrary):
+    """Launch ``library``'s kernels (from ``build``) inside the block."""
+    _active.append(library)
+    try:
+        yield library
+    finally:
+        _active.pop()
 
 
 def check_operand(name: str, t, *, dtype, ndim: int, device) -> None:

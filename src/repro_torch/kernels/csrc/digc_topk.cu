@@ -50,22 +50,62 @@
 //            while the chunks stream, and the tile's kd * rounds survivors
 //            go through the packed legacy merge. Approximate by design.
 //
-// What bounds it on an H100: the distance tile is 2*N*M*D fp32 FMA
-// operations on the CUDA cores (data-sheet peak 67 TFLOP/s for the SXM
-// part; the BF16 variant's bound is the tensor-core rate, which this
-// scalar form does not reach), and the inputs are a few MB, so the product
-// bounds it at the main path's shapes; the outputs are tiny. The legacy
-// merge adds kd passes over kd + (buffered candidates) keys per row and
-// tile; buffering only candidates that beat the list's worst entry keeps
-// that near kd per pass once the lists fill, and a tile with no candidate
-// costs nothing.
 // The design keeps the N x M matrix out of device memory: one block owns
-// BN query rows and walks the co-node tiles in a loop (the TPU's
-// sequential "arbitrary" grid axis), staging x and y chunks of DC features
-// through shared memory so any D fits. Each row's running list and its
+// BN query rows and walks the co-node chunks in a loop (the TPU's
+// sequential "arbitrary" grid axis). Each row's running list and its
 // legacy buffer live in shared memory; one warp merges for a row. BN is
 // small so that a batch of 196-node images still spreads over the 132 SMs.
-// Tensor cores (mma/wgmma) are later work.
+//
+// What bounds it on an H100 (data-sheet rates of the SXM part): the
+// bytes are x once, y once per 16-row block (from the 50 MB L2 after the
+// first block of an image), the outputs and the bias: 0.8 us at the iso
+// shape at 3.35 TB/s. The product is 2*N*M*D operations; the fp32
+// variants take three TF32 tensor-core products for each (split TF32,
+// below), 6*N*M*D at 495 TFLOP/s, 0.9 us at the iso shape; bf16 takes one
+// at 989 TFLOP/s. The merge's integer work depends on the data: a chunk
+// whose candidates all lose to the lists' worst entries costs one ballot,
+// a chunk early in the walk a 64-key sort per row. The scalar-FMA form of
+// this kernel spent 65% of a block's cycles at the iso shape staging and
+// multiplying (tools/digc_split.py); this design attacks that part.
+// Measured the same way, a block of this kernel at the iso shape spends
+// about half its cycles between ring barriers (copy issue and products)
+// and a third merging; at pyr stage 0 and the causal KNN shape the merge
+// takes 61-68%:
+//   x once    the block's 16 query rows are staged once (features in
+//             slabs of XMAX, re-staged per chunk only past XMAX), split or
+//             rounded as they are staged, their norms taken once from the
+//             staged values;
+//   y ring    co-node pieces of 64 columns x 128 features (64 in 8-warp
+//             blocks) stream through a shared-memory ring of 3 pieces:
+//             piece p + 2 is in flight while piece p is multiplied and
+//             its chunk merged, by 16-byte cp.async (4-byte where rows
+//             are not 16-byte aligned), zero-filled past M and D. Each
+//             piece costs a barrier and a wait, so pieces are as wide as
+//             shared memory allows;
+//   warps     16 where the grid fits on the SMs (one block a SM), else
+//             8 (two blocks a SM, so that one block's merge overlaps the
+//             other's products). Warp w multiplies the 16 x 8 slice w % 8
+//             of the 16 x 64 tile; with 16 warps two share a slice, each
+//             taking every other MMA step, and their sums meet in shared
+//             memory at the chunk's end. Slices whose columns are all
+//             masked are skipped. Warp w merges rows w, w + NW;
+//   products  mma.sync on the tensor cores: m16n8k8 TF32 for the fp32
+//             variants, as split TF32 (a = hi + lo, hi = rna_tf32(a),
+//             lo = rna_tf32(a - hi); x.y = hi.hi + hi.lo + lo.hi,
+//             relative error ~2^-21, and exact on small integers; each
+//             term in its own accumulator), m16n8k16 bf16 for BF16 (exact
+//             products of the rounded operands, fp32 sums). A column's
+//             norm is summed once per chunk from the warps' own B
+//             fragments. One-pass TF32 (2^-11 per operand) would miss
+//             the distance tolerance at D = 192.
+// Within an 8- (16-) feature MMA step the feature order is permuted so
+// that a lane's A and B elements are adjacent in shared memory (one
+// vector load each); the dot product is the same sum in another order.
+// The tile goes to shared memory with bias and masks as before, and the
+// merges compute what they did (the bitonic one gathers at most 32
+// candidates into one key a lane and sorts them in 15 stages instead of
+// 21). mma.sync and not wgmma: wgmma takes 64 rows a warpgroup,
+// and 64-row blocks would leave 32 blocks for 132 SMs at the iso shape.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -77,10 +117,14 @@
 namespace {
 
 constexpr int BN = 16;            // query rows per block
-constexpr int BM = 64;            // co-node columns per staged chunk
-constexpr int DC = 64;            // features staged per step
-constexpr int THREADS = 256;      // 8 warps; tile layout 16 x 16 threads
-constexpr int WARPS = THREADS / 32;
+constexpr int BM = 64;            // co-node columns per chunk
+constexpr int XMAX = 256;         // features of x held at once
+constexpr int TS = BM + 8;        // tile row stride (floats)
+constexpr int STAGES = 3;         // y pieces in the ring
+// Warps a block: 16 (one block a SM) where the grid fits on the SMs, else
+// 8 (two blocks a SM). Warp w merges rows w, w + NW (walk: products).
+constexpr int NW_WIDE = 16;
+constexpr int NW_NARROW = 8;
 constexpr int MAX_KD = 256;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float BIG = 1e30f;
@@ -173,6 +217,21 @@ __device__ __forceinline__ void warp_sort64(Key (&v)[2], int lane) {
   }
 }
 
+// Bitonic sort of the warp's 32 keys, ascending: element e in lane e.
+template <class Key>
+__device__ __forceinline__ void warp_sort32(Key& v, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const Key p = shfl_xor(v, stride);
+      const bool ascending = (lane & size) == 0;
+      const bool lower = (lane & stride) == 0;
+      if (key_less(p, v) == (lower == ascending)) v = p;
+    }
+  }
+}
+
 // Number of entries of the sorted list[0, n) ordered before v.
 template <class Key>
 __device__ __forceinline__ int count_before(const Key* list, int n,
@@ -192,27 +251,44 @@ __device__ __forceinline__ int count_before(const Key* list, int n,
 // Merge one row's BM tile candidates into its sorted list of kd entries.
 // Called by a whole warp; scratch is the warp's BM-entry buffer.
 // Candidates that do not beat the list's worst entry are dropped; the rest
-// are sorted and merged by rank: an entry's place in the merged list is its
-// place in its own list plus the number of entries of the other list
-// ordered before it. Keys are unique (each carries its column), so the
-// places are distinct.
+// are sorted (at most 32 of them: gathered into one key a lane and sorted
+// across the warp in 15 stages instead of 21 over two keys a lane) and
+// merged by rank: an entry's place in the merged list is its place in its
+// own list plus the number of entries of the other list ordered before
+// it. Keys are unique (each carries its column), so the places are
+// distinct.
 template <class Key>
 __device__ __forceinline__ void merge_row(const float* trow, int m0, int M,
                                           int idx_bits, Key* list, int kd,
                                           int lane, Key* scratch) {
   const Key worst = list[kd - 1];
   Key v[2];
-  int q = 0;  // candidates that beat the worst entry
+  unsigned bal[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int col = m0 + lane + 32 * h;
     const Key c = Key::make(trow[lane + 32 * h], col, idx_bits);
     const bool want = col < M && key_less(c, worst);
     v[h] = want ? c : Key::fill();
-    q += __popc(__ballot_sync(FULL, want));
+    bal[h] = __ballot_sync(FULL, want);
   }
+  // candidates that beat the worst entry
+  const int q = __popc(bal[0]) + __popc(bal[1]);
   if (q == 0) return;  // warp-uniform
-  warp_sort64(v, lane);
+  if (q <= 32) {  // warp-uniform
+    const unsigned lt = (1u << lane) - 1u;
+    if (bal[0] & (1u << lane)) scratch[__popc(bal[0] & lt)] = v[0];
+    if (bal[1] & (1u << lane)) {
+      scratch[__popc(bal[0]) + __popc(bal[1] & lt)] = v[1];
+    }
+    __syncwarp();
+    v[0] = lane < q ? scratch[lane] : Key::fill();
+    v[1] = Key::fill();
+    __syncwarp();
+    warp_sort32(v[0], lane);
+  } else {
+    warp_sort64(v, lane);
+  }
   scratch[lane] = v[0];
   scratch[lane + 32] = v[1];
   __syncwarp();
@@ -306,6 +382,7 @@ struct Args {
   int* out_i;
   int N, M, D, kd, idx_bits;
   bool causal;
+  bool vec;      // 16-byte copies of y: D % 4 == 0 and y 16-byte aligned
   int block_m;   // columns per logical tile (one merge each)
   int cap;       // per-row buffer: candidates (legacy) or kd * rounds
                  // survivors (bucket)
@@ -392,165 +469,454 @@ __device__ __forceinline__ void bucket_columns(const Args& a,
   __syncwarp();
 }
 
-// A chunk of R rows x DC features, staged through shared memory. Each
-// thread issues all its global loads before its first shared store, so
-// they are in flight together: with one block per SM (a batch of 196-node
-// images) nothing else hides their latency.
-template <int R>
-struct Chunk {
-  static constexpr int PER = R * DC / THREADS;
-  static_assert(R * DC % THREADS == 0, "chunk must split evenly");
-  float v[PER];
+// ---------------------------------------------------------------------------
+// The distance tile on the tensor cores.
 
-  // Rows [r0, r0 + R) and features [d0, d0 + DC) of src (rows x D),
-  // zero outside.
-  __device__ __forceinline__ void load(const float* __restrict__ src, int r0,
-                                       int rows, int d0, int D, int tid) {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int e = tid + u * THREADS;
-      const int gr = r0 + e / DC, gc = d0 + e % DC;
-      v[u] = (gr < rows && gc < D) ? src[static_cast<size_t>(gr) * D + gc]
-                                   : 0.f;
-    }
-  }
-
-  // BF16 rounds each value to bf16 (RNE) and back.
-  template <bool BF16>
-  __device__ __forceinline__ void store(float (*dst)[DC + 1], int tid) const {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int e = tid + u * THREADS;
-      dst[e / DC][e % DC] =
-          BF16 ? __bfloat162float(__float2bfloat16_rn(v[u])) : v[u];
-    }
-  }
+// Per operand type: the MMA depth and the floats one staged x feature
+// takes (hi and lo for split TF32).
+template <bool BF16>
+struct Geo {
+  static constexpr int KSTEP = BF16 ? 16 : 8;
+  static constexpr int XW = BF16 ? 1 : 2;
 };
 
-// The (BN x BM) distance tile of rows [row0, row0 + BN) and columns
-// [m0, m0 + BM) into tile: each thread's four products and the norms of
-// its row and columns from the same staged values, then the bias and the
-// masks (columns at or past M and, when causal, columns past the row get
-// distance BIG).
+// The y ring of an NW-warp block: pieces of DP features (128 for 16-warp
+// blocks, one a SM; 64 for 8-warp blocks, two a SM, whose shared memory
+// halves) and the ring's row stride. Strides keep a warp's vector loads
+// free of bank conflicts: 8-byte B loads (TF32) want a row stride of 8
+// mod 32 floats, 16-byte loads 16 mod 32.
+template <bool BF16, int NW>
+struct Ring {
+  static constexpr int DP = NW == NW_WIDE ? 128 : 64;
+  static constexpr int YS = BF16 ? DP + 16 : DP + 8;
+};
+
+__host__ __device__ constexpr int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
+
+// Features of x staged at once, and its row stride (16 mod 32 floats).
 template <bool BF16>
-__device__ __forceinline__ void distance_tile(
-    const float* __restrict__ xb, const float* __restrict__ yb,
-    const float* __restrict__ pb, int row0, int m0, int N, int M, int D,
-    bool causal, int tid, float (*xs)[DC + 1], float (*ys)[DC + 1],
-    float (*tile)[BM + 1]) {
-  const int tx = tid % 16;  // columns tx + 16 j, j < 4
-  const int ty = tid / 16;  // row ty
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float sq_y[4] = {0.f, 0.f, 0.f, 0.f};
-  float sq_x = 0.f;
-  for (int d0 = 0; d0 < D; d0 += DC) {
-    Chunk<BN> xc;
-    Chunk<BM> yc;
-    xc.load(xb, row0, N, d0, D, tid);
-    yc.load(yb, m0, M, d0, D, tid);
-    xc.store<BF16>(xs, tid);
-    yc.store<BF16>(ys, tid);
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < DC; ++c) {
-      const float av = xs[ty][c];
-      sq_x = fmaf(av, av, sq_x);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bv = ys[tx + 16 * j][c];
-        acc[j] = fmaf(av, bv, acc[j]);
-        sq_y[j] = fmaf(bv, bv, sq_y[j]);
-      }
-    }
-    __syncthreads();
-  }
-  const int row = row0 + ty;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = m0 + tx + 16 * j;
-    float v = (sq_x - 2.f * acc[j]) + sq_y[j];
-    if (pb != nullptr && row < N && col < M) {
-      v += pb[static_cast<size_t>(row) * M + col];
-    }
-    if (col >= M || (causal && col > row)) v = BIG;
-    tile[ty][tx + 16 * j] = v;
+__host__ __device__ constexpr int x_width(int D) {
+  return round_up(D, Geo<BF16>::KSTEP) < XMAX ? round_up(D, Geo<BF16>::KSTEP)
+                                               : XMAX;
+}
+template <bool BF16>
+__host__ __device__ constexpr int x_stride(int D) {
+  return Geo<BF16>::XW * x_width<BF16>(D) +
+         (Geo<BF16>::XW * x_width<BF16>(D) % 32 == 16 ? 0 : 16);
+}
+
+__device__ __forceinline__ unsigned tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// Two fp32 values (bf16-representable) as one bf16x2 register, lo in the
+// low half.
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], unsigned a0,
+                                         unsigned a1, unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0,
+                                         unsigned a1, unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// cp.async of `bytes` (the copy size, or 0 to write zeros) from global to
+// shared memory.
+template <int SIZE>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (SIZE == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                 "l"(src), "r"(bytes));
   }
 }
 
-// The bitonic merge. Two blocks per SM: the batched loads need about 110
-// registers, and a tighter cap makes ptxas spill.
-template <bool PACKED, bool BF16>
-__global__ void __launch_bounds__(THREADS, 2)
-digc_topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 const float* __restrict__ pos, long long pos_bstride,
-                 float* __restrict__ out_d, int* __restrict__ out_i, int N,
-                 int M, int D, int kd, bool causal, int idx_bits) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// Stage x's rows [row0, row0 + BN) and features [f0, f0 + width) (zero
+// outside x) into xs: split into (hi, lo) TF32 pairs, or rounded to bf16.
+// With `norms`, add each row's squared norm of the staged (rounded)
+// values to sqx (`first`: start from 0). 32 NW / BN threads a row, each
+// of which issues
+// all its loads before its first store, so that they are in flight
+// together.
+template <bool BF16, int NW>
+__device__ __forceinline__ void stage_x(const Args& a, const float* xb,
+                                        int row0, int f0, int width, int xs_n,
+                                        float* xs, float* sqx, bool norms,
+                                        bool first, int tid) {
+  constexpr int TPR = NW * 32 / BN;  // threads a row
+  constexpr int PER = XMAX / TPR;
+  const int r = tid / TPR, l = tid % TPR;
+  const int gr = row0 + r;
+  const float* src = xb + static_cast<size_t>(gr < a.N ? gr : 0) * a.D + f0;
+  float v[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int f = l + TPR * i;
+    v[i] = (f < width && gr < a.N && f0 + f < a.D) ? __ldg(src + f) : 0.f;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int f = l + TPR * i;
+    if (f >= width) break;
+    if constexpr (BF16) {
+      v[i] = round_bf16(v[i]);
+      xs[r * xs_n + f] = v[i];
+    } else {
+      const float hi = __uint_as_float(tf32(v[i]));
+      const float lo = __uint_as_float(tf32(v[i] - hi));
+      reinterpret_cast<float2*>(xs + r * xs_n)[f] = make_float2(hi, lo);
+    }
+    s = fmaf(v[i], v[i], s);
+  }
+  if (norms) {
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+    if (l == 0) sqx[r] = (first ? 0.f : sqx[r]) + s;
+  }
+}
+
+// Copy piece (chunk m0, features [d0, d0 + DP)) of y into a ring stage:
+// the features up to the MMA depth past D, zero past M and D.
+template <bool BF16, int NW>
+__device__ __forceinline__ void issue_piece(const Args& a, const float* yb,
+                                            int m0, int d0, float* st,
+                                            int tid) {
+  constexpr int DP = Ring<BF16, NW>::DP, YS = Ring<BF16, NW>::YS;
+  constexpr int THREADS = NW * 32;
+  const int width = min(DP, round_up(a.D - d0, Geo<BF16>::KSTEP));
+  if (a.vec) {  // vector tid % (DP / 4) of every THREADS / (DP / 4)-th column
+    const int v = 4 * (tid % (DP / 4));
+    if (v >= width) return;
+    for (int c = tid / (DP / 4); c < BM; c += THREADS / (DP / 4)) {
+      const int col = m0 + c, f = d0 + v;
+      const bool ok = col < a.M && f < a.D;
+      cp_async<16>(st + c * YS + v,
+                   ok ? yb + static_cast<size_t>(col) * a.D + f : yb,
+                   ok ? 16 : 0);
+    }
+  } else {  // feature tid % DP of every THREADS / DP-th column
+    const int v = tid % DP;
+    if (v >= width) return;
+    for (int c = tid / DP; c < BM; c += THREADS / DP) {
+      const int col = m0 + c, f = d0 + v;
+      const bool ok = col < a.M && f < a.D;
+      cp_async<4>(st + c * YS + v,
+                  ok ? yb + static_cast<size_t>(col) * a.D + f : yb,
+                  ok ? 4 : 0);
+    }
+  }
+}
+
+// Floats the second half of a 16-warp block hands the first (per slice
+// and lane: four products and a column norm).
+constexpr int RED = 8 * 5 * 32;
+
+// Floats of the tile pipeline's shared memory: the y ring, x, the
+// distance tile, the row norms and the k-split's hand-over.
+template <bool BF16, int NW>
+__host__ __device__ constexpr int tile_floats(int D) {
+  return STAGES * BM * Ring<BF16, NW>::YS + BN * x_stride<BF16>(D) + BN * TS +
+         BN + RED;
+}
+
+// One MMA step (KSTEP features at feature ks * KSTEP of the piece) into
+// the warp's 16 x 8 accumulators, and its column's squared norm (column
+// 8 slice + lane / 4, partial over the lane's features). Fragment
+// element (row g, k) of the step is feature 2 t + (k >= 4) for t = k % 4
+// (TF32; bf16: 4 t + ...): the same permutation for A and B. The
+// split-TF32 terms go to three accumulators, so that no MMA waits on the
+// one before it; bf16 steps go to accumulator S.
+template <bool BF16, int S>
+__device__ __forceinline__ void mma_step(const float* yrow, const float* x0,
+                                         const float* x1, int ks, int t,
+                                         float (&acc)[3][4], float& sqy) {
+  const float4 a0 = *reinterpret_cast<const float4*>(x0 + 16 * ks);
+  const float4 a1 = *reinterpret_cast<const float4*>(x1 + 16 * ks);
+  if constexpr (BF16) {
+    float4 b = *reinterpret_cast<const float4*>(yrow + 16 * ks + 4 * t);
+    b = make_float4(round_bf16(b.x), round_bf16(b.y), round_bf16(b.z),
+                    round_bf16(b.w));
+    sqy = fmaf(b.x, b.x, sqy);
+    sqy = fmaf(b.y, b.y, sqy);
+    sqy = fmaf(b.z, b.z, sqy);
+    sqy = fmaf(b.w, b.w, sqy);
+    mma_bf16(acc[S], bf16x2(a0.x, a0.y), bf16x2(a1.x, a1.y),
+             bf16x2(a0.z, a0.w), bf16x2(a1.z, a1.w), bf16x2(b.x, b.y),
+             bf16x2(b.z, b.w));
+  } else {
+    // a0 = (hi, lo) of row g's features 2t and 2t + 1; a1 row g + 8's.
+    const float2 b = *reinterpret_cast<const float2*>(yrow + 8 * ks + 2 * t);
+    sqy = fmaf(b.x, b.x, sqy);
+    sqy = fmaf(b.y, b.y, sqy);
+    const unsigned bh0 = tf32(b.x), bh1 = tf32(b.y);
+    const unsigned bl0 = tf32(b.x - __uint_as_float(bh0));
+    const unsigned bl1 = tf32(b.y - __uint_as_float(bh1));
+    const unsigned ah0 = __float_as_uint(a0.x), ah1 = __float_as_uint(a1.x);
+    const unsigned ah2 = __float_as_uint(a0.z), ah3 = __float_as_uint(a1.z);
+    mma_tf32(acc[0], ah0, ah1, ah2, ah3, bh0, bh1);
+    mma_tf32(acc[1], ah0, ah1, ah2, ah3, bl0, bl1);
+    mma_tf32(acc[2], __float_as_uint(a0.y), __float_as_uint(a1.y),
+             __float_as_uint(a0.w), __float_as_uint(a1.w), bh0, bh1);
+  }
+}
+
+// One piece's products for the warp's slice: MMA steps half, half + H,
+// ... of nk (H = NW / 8 warps share a slice), unrolled without a branch
+// when the piece is whole, so that the next steps' loads go out early.
+template <bool BF16, int NW>
+__device__ __forceinline__ void mma_piece(const float* st, const float* xs,
+                                          int xs_n, int fx, int nk, int slice,
+                                          int half, int lane,
+                                          float (&acc)[3][4], float& sqy) {
+  constexpr int H = NW / 8;
+  constexpr int NK = Ring<BF16, NW>::DP / Geo<BF16>::KSTEP;
+  const int g = lane >> 2, t = lane & 3;
+  const float* yrow = st + (8 * slice + g) * Ring<BF16, NW>::YS;
+  const float* x0 = xs + g * xs_n + Geo<BF16>::XW * fx + 4 * t;
+  const float* x1 = x0 + 8 * xs_n;
+  if (nk == NK) {
+#pragma unroll
+    for (int ks = 0; ks < NK; ks += 2 * H) {
+      mma_step<BF16, 0>(yrow, x0, x1, ks + half, t, acc, sqy);
+      mma_step<BF16, 1>(yrow, x0, x1, ks + H + half, t, acc, sqy);
+    }
+  } else {
+    for (int ks = half; ks < nk; ks += 2 * H) {
+      mma_step<BF16, 0>(yrow, x0, x1, ks, t, acc, sqy);
+      if (ks + H < nk) mma_step<BF16, 1>(yrow, x0, x1, ks + H, t, acc, sqy);
+    }
+  }
+}
+
+// The 16 x 8 slice `slice` of the distance tile of rows [row0, row0 +
+// BN) and columns [m0, m0 + BM), from its products and its columns'
+// partial norms: (sq_x - 2 x.y) + sq_y, then the bias and the masks
+// (columns at or past M and, when causal, columns past the row get
+// distance BIG).
+__device__ __forceinline__ void epilogue(const Args& a, const float* pb,
+                                         int row0, int m0, int slice,
+                                         int lane, const float (&dot)[4],
+                                         float sqy, const float* sqx,
+                                         float* tile) {
+  const int g = lane >> 2, t = lane & 3;
+  sqy += __shfl_xor_sync(FULL, sqy, 1);
+  sqy += __shfl_xor_sync(FULL, sqy, 2);
+  float sy[2];
+  sy[0] = __shfl_sync(FULL, sqy, 8 * t);      // column 2 t's group
+  sy[1] = __shfl_sync(FULL, sqy, 8 * t + 4);  // column 2 t + 1's
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    const int row = row0 + r;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * slice + 2 * t + e;
+      const int col = m0 + c;
+      float v = (sqx[r] - 2.f * dot[2 * h + e]) + sy[e];
+      if (pb != nullptr && row < a.N && col < a.M) {
+        v += pb[static_cast<size_t>(row) * a.M + col];
+      }
+      if (col >= a.M || (a.causal && col > row)) v = BIG;
+      tile[r * TS + c] = v;
+    }
+  }
+}
+
+// Walk `chunks` chunks of BM columns for the block's rows: each chunk's
+// distance tile is formed piece by piece from the ring and left in
+// shared memory, then merge(m0, tile) runs on the whole block. Warp w
+// multiplies slice w % 8 over MMA steps w / 8, w / 8 + NW / 8, ... of
+// each piece; with 16 warps the second half hands its sums to the first
+// at the chunk's end. A slice whose columns are all masked (at or past M,
+// or causal and past the block's rows) is not multiplied. Every thread
+// of the block calls it; smem holds tile_floats<BF16, NW>(D).
+template <bool BF16, int NW, class Merge>
+__device__ __forceinline__ void walk(const Args& a, int b, int row0,
+                                     int chunks, float* smem, Merge&& merge) {
+  constexpr int DP = Ring<BF16, NW>::DP, YS = Ring<BF16, NW>::YS;
+  const float* xb = a.x + static_cast<size_t>(b) * a.N * a.D;
+  const float* yb = a.y + static_cast<size_t>(b) * a.M * a.D;
+  const float* pb = a.pos == nullptr ? nullptr : a.pos + b * a.pos_bstride;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int xs_n = x_stride<BF16>(a.D), xw = x_width<BF16>(a.D);
+  float* ring = smem;
+  float* xs = ring + STAGES * BM * YS;
+  float* tile = xs + BN * xs_n;
+  float* sqx = tile + BN * TS;
+  float* red = sqx + BN;
+  const int slice = warp % 8, half = warp / 8;
+  const int last_row = min(row0 + BN, a.N) - 1;
+  const int pieces = (a.D + DP - 1) / DP;  // per chunk
+  const int total = chunks * pieces;
+  const bool slabs = a.D > XMAX;  // x re-staged per chunk, XMAX at a time
+  auto issue = [&](int p) {
+    if (p < total) {
+      issue_piece<BF16, NW>(a, yb, p / pieces * BM, p % pieces * DP,
+                            ring + p % STAGES * BM * YS, tid);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) issue(p);
+  if (!slabs) {
+    stage_x<BF16, NW>(a, xb, row0, 0, xw, xs_n, xs, sqx, true, true, tid);
+  }
+  float acc[3][4];
+  float sqy = 0.f;
+  for (int p = 0; p < total; ++p) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // piece p is in; piece p - 1's stage is free
+    issue(p + STAGES - 1);
+    const int chunk = p / pieces, j = p % pieces;
+    const int d0 = j * DP;
+    if (slabs && d0 % XMAX == 0) {
+      stage_x<BF16, NW>(a, xb, row0, d0, XMAX, xs_n, xs, sqx, chunk == 0,
+                        j == 0, tid);
+      __syncthreads();
+    }
+    if (j == 0) {
+#pragma unroll
+      for (int i = 0; i < 12; ++i) acc[i / 4][i % 4] = 0.f;
+      sqy = 0.f;
+    }
+    const int nk = (min(DP, a.D - d0) + Geo<BF16>::KSTEP - 1) /
+                   Geo<BF16>::KSTEP;
+    constexpr int H = NW / 8;  // warps a slice
+    const int c0 = chunk * BM + 8 * slice;  // the slice's first column
+    if (c0 < a.M && !(a.causal && c0 > last_row)) {  // warp-uniform
+      mma_piece<BF16, NW>(ring + p % STAGES * BM * YS, xs, xs_n,
+                         slabs ? d0 % XMAX : d0, nk, slice, half, lane, acc,
+                         sqy);
+    }
+    if (j == pieces - 1) {
+      float dot[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dot[i] = (acc[1][i] + acc[2][i]) + acc[0][i];
+      float* hand = red + slice * 5 * 32 + lane;
+      if (H == 2) {
+        if (half == 1) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) hand[32 * i] = dot[i];
+          hand[128] = sqy;
+        }
+        __syncthreads();
+        if (half == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dot[i] += hand[32 * i];
+          sqy += hand[128];
+        }
+      }
+      if (half == 0) {
+        epilogue(a, pb, row0, chunk * BM, slice, lane, dot, sqy, sqx, tile);
+      }
+      __syncthreads();
+      merge(chunk * BM, tile);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The bitonic merge.
+template <bool PACKED, bool BF16, int NW>
+__global__ void __launch_bounds__(NW * 32, NW_WIDE / NW)
+digc_topk_kernel(const Args a) {
+  constexpr int THREADS = NW * 32, WARPS = NW;
   using Key = std::conditional_t<PACKED, PackedKey, PairKey>;
-  __shared__ float xs[BN][DC + 1];
-  __shared__ float ys[BM][DC + 1];
-  __shared__ float tile[BN][BM + 1];
-  __shared__ Key scratch[WARPS][BM];
   extern __shared__ __align__(16) unsigned char smem[];
-  Key* run = reinterpret_cast<Key*>(smem);  // BN lists of kd keys
+  float* fs = reinterpret_cast<float*>(smem);
+  Key* scratch = reinterpret_cast<Key*>(fs + tile_floats<BF16, NW>(a.D));
+  Key* run = scratch + WARPS * BM;  // BN lists of kd keys
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * BN;
-  const int last_row = min(row0 + BN, N) - 1;
-  const float* xb = x + static_cast<size_t>(b) * N * D;
-  const float* yb = y + static_cast<size_t>(b) * M * D;
-  const float* pb = pos == nullptr ? nullptr : pos + b * pos_bstride;
+  const int last_row = min(row0 + BN, a.N) - 1;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int kd = a.kd;
 
   for (int e = tid; e < BN * kd; e += THREADS) run[e] = Key::fill();
 
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    // Causal: every later column lies above all of this block's rows.
-    if (causal && m0 > last_row && m0 >= kd) break;  // block-uniform
-    distance_tile<BF16>(xb, yb, pb, row0, m0, N, M, D, causal, tid, xs, ys,
-                        tile);
-    __syncthreads();
-    for (int r = warp; r < BN; r += WARPS) {
-      if (row0 + r >= N) continue;  // warp-uniform
-      merge_row(tile[r], m0, M, idx_bits, run + r * kd, kd, lane,
-                scratch[warp]);
-    }
-    __syncthreads();
+  // Causal: a chunk past every row of the block (and past the first kd
+  // columns) and all later ones are skipped.
+  int chunks = (a.M + BM - 1) / BM;
+  if (a.causal) {
+    chunks = min(chunks, max((last_row + 1 + BM - 1) / BM, (kd + BM - 1) / BM));
   }
+  walk<BF16, NW>(a, b, row0, chunks, fs, [&](int m0, const float* tile) {
+    for (int r = warp; r < BN; r += WARPS) {
+      if (row0 + r >= a.N) continue;  // warp-uniform
+      merge_row(tile + r * TS, m0, a.M, a.idx_bits, run + r * kd, kd, lane,
+                scratch + warp * BM);
+    }
+  });
 
   for (int r = warp; r < BN; r += WARPS) {
     const int gr = row0 + r;
-    if (gr >= N) continue;
-    const size_t o = (static_cast<size_t>(b) * N + gr) * kd;
+    if (gr >= a.N) continue;
+    const size_t o = (static_cast<size_t>(b) * a.N + gr) * kd;
     for (int j = lane; j < kd; j += 32) {
-      run[r * kd + j].store(out_d + o + j, out_i + o + j, idx_bits);
+      run[r * kd + j].store(a.out_d + o + j, a.out_i + o + j, a.idx_bits);
     }
   }
 }
 
 // The legacy merge (BUCKET: with the bucket_rounds pre-reduction).
-template <bool PACKED, bool BF16, bool BUCKET>
-__global__ void __launch_bounds__(THREADS, 2)
+template <bool PACKED, bool BF16, bool BUCKET, int NW>
+__global__ void __launch_bounds__(NW * 32, NW_WIDE / NW)
 digc_legacy_kernel(const Args a) {
+  constexpr int THREADS = NW * 32, WARPS = NW;
   using Key = std::conditional_t<PACKED, PackedKey, PairKey>;
-  __shared__ float xs[BN][DC + 1];
-  __shared__ float ys[BM][DC + 1];
-  __shared__ float tile[BN][BM + 1];
   __shared__ int counts[BN];  // buffered candidates per row
   extern __shared__ __align__(16) unsigned char smem[];
+  float* fs = reinterpret_cast<float*>(smem);
   // Per row: its list of kd keys, then its buffer of cap keys; then one
   // kd-key output list per warp.
   const int stride = a.kd + a.cap;
-  Key* rows = reinterpret_cast<Key*>(smem);
+  Key* rows = reinterpret_cast<Key*>(fs + tile_floats<BF16, NW>(a.D));
   Key* outs = rows + BN * stride;
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * BN;
   const int last_row = min(row0 + BN, a.N) - 1;
-  const float* xb = a.x + static_cast<size_t>(b) * a.N * a.D;
-  const float* yb = a.y + static_cast<size_t>(b) * a.M * a.D;
-  const float* pb = a.pos == nullptr ? nullptr : a.pos + b * a.pos_bstride;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -561,13 +927,12 @@ digc_legacy_kernel(const Args a) {
   if (tid < BN) counts[tid] = 0;
 
   const int m_end = legacy_limit(a, last_row);
-  for (int m0 = 0; m0 < m_end; m0 += BM) {
-    distance_tile<BF16>(xb, yb, pb, row0, m0, a.N, a.M, a.D, a.causal, tid,
-                        xs, ys, tile);
-    __syncthreads();
+  walk<BF16, NW>(a, b, row0, (m_end + BM - 1) / BM, fs,
+                     [&](int m0, const float* tile) {
     for (int r = warp; r < BN; r += WARPS) {
       const int gr = row0 + r;
       if (gr >= a.N) continue;  // warp-uniform
+      const float* trow = tile + r * TS;
       Key* list = rows + r * stride;
       Key* out = outs + warp * a.kd;
       int cnt = counts[r];
@@ -576,9 +941,9 @@ digc_legacy_kernel(const Args a) {
         const int t0 = c / a.block_m * a.block_m;
         const int seg = min(hi, t0 + a.block_m);
         if constexpr (BUCKET) {
-          bucket_columns(a, tile[r], m0, c, seg, t0, list + a.kd, lane);
+          bucket_columns(a, trow, m0, c, seg, t0, list + a.kd, lane);
         } else {
-          buffer_columns(a, tile[r], m0, c, seg, list, cnt, lane, out);
+          buffer_columns(a, trow, m0, c, seg, list, cnt, lane, out);
         }
         if (seg == t0 + a.block_m) {  // the tile ends: merge
           if constexpr (BUCKET) {
@@ -597,8 +962,7 @@ digc_legacy_kernel(const Args a) {
       if (lane == 0) counts[r] = cnt;
       __syncwarp();
     }
-    __syncthreads();
-  }
+  });
 
   // Tiles end on the padded M: every buffer is merged by now.
   for (int r = warp; r < BN; r += WARPS) {
@@ -612,33 +976,57 @@ digc_legacy_kernel(const Args a) {
   }
 }
 
+// 16 warps a block where the grid fits on the card's SMs at one block
+// each, else 8 at two.
+bool wide_grid(const Args& a, int B) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return static_cast<long long>((a.N + BN - 1) / BN) * B <= sms;
+}
+
+template <class Kernel>
+int launch_with(Kernel kernel, int threads, const Args& a, int B, int dyn,
+                cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.N + BN - 1) / BN, B);
+  kernel<<<grid, threads, dyn, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool PACKED, bool BF16>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using Key = std::conditional_t<PACKED, PackedKey, PairKey>;
-  const int dyn = BN * a.kd * static_cast<int>(sizeof(Key));
-  cudaError_t err = cudaFuncSetAttribute(
-      digc_topk_kernel<PACKED, BF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.N + BN - 1) / BN, B);
-  digc_topk_kernel<PACKED, BF16><<<grid, THREADS, dyn, stream>>>(
-      a.x, a.y, a.pos, a.pos_bstride, a.out_d, a.out_i, a.N, a.M, a.D, a.kd,
-      a.causal, a.idx_bits);
-  return static_cast<int>(cudaGetLastError());
+  const int nw = wide_grid(a, B) ? NW_WIDE : NW_NARROW;
+  const int dyn = (nw == NW_WIDE ? tile_floats<BF16, NW_WIDE>(a.D)
+                                 : tile_floats<BF16, NW_NARROW>(a.D)) * 4 +
+                  (nw * BM + BN * a.kd) * static_cast<int>(sizeof(Key));
+  return nw == NW_WIDE
+             ? launch_with(digc_topk_kernel<PACKED, BF16, NW_WIDE>, nw * 32,
+                           a, B, dyn, stream)
+             : launch_with(digc_topk_kernel<PACKED, BF16, NW_NARROW>, nw * 32,
+                           a, B, dyn, stream);
 }
 
 template <bool PACKED, bool BF16, bool BUCKET>
 int launch_legacy(const Args& a, int B, cudaStream_t stream) {
   using Key = std::conditional_t<PACKED, PackedKey, PairKey>;
-  const int dyn = (BN * (a.kd + a.cap) + WARPS * a.kd) *
-                  static_cast<int>(sizeof(Key));
-  cudaError_t err = cudaFuncSetAttribute(
-      digc_legacy_kernel<PACKED, BF16, BUCKET>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.N + BN - 1) / BN, B);
-  digc_legacy_kernel<PACKED, BF16, BUCKET><<<grid, THREADS, dyn, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const int nw = wide_grid(a, B) ? NW_WIDE : NW_NARROW;
+  const int dyn = (nw == NW_WIDE ? tile_floats<BF16, NW_WIDE>(a.D)
+                                 : tile_floats<BF16, NW_NARROW>(a.D)) * 4 +
+                  (BN * (a.kd + a.cap) + nw * a.kd) *
+                      static_cast<int>(sizeof(Key));
+  return nw == NW_WIDE
+             ? launch_with(digc_legacy_kernel<PACKED, BF16, BUCKET, NW_WIDE>,
+                           nw * 32, a, B, dyn, stream)
+             : launch_with(
+                   digc_legacy_kernel<PACKED, BF16, BUCKET, NW_NARROW>,
+                   nw * 32, a, B, dyn, stream);
 }
 
 }  // namespace
@@ -671,6 +1059,7 @@ extern "C" int digc_topk_launch(const void* x, const void* y, const void* pos,
   a.kd = kd;
   a.idx_bits = idx_bits;
   a.causal = (flags & FLAG_CAUSAL) != 0;
+  a.vec = D % 4 == 0 && reinterpret_cast<size_t>(y) % 16 == 0;
   a.block_m = block_m;
   a.cap = cap;
   a.rounds = rounds;

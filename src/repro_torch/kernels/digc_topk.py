@@ -18,8 +18,9 @@ and every variant of that kernel:
   * ``packed``: one int32 (dist|idx) key per list entry
     (``core/packedkey.py``), ``idx_bits = idx_bits_for(M)`` of the true M;
     the returned distances carry the key's truncation;
-  * ``mxu_bf16``: x and y rounded to bf16, norms and products taken from
-    the rounded values in fp32 (the TPU kernel's rule);
+  * ``mxu_bf16``: x and y rounded to bf16, norms taken from the rounded
+    values in fp32 and products on the bf16 tensor cores with fp32 sums
+    (the TPU kernel's rule; the fp32 variants multiply as split TF32);
   * ``pos_bias``: a (B, N, M) fp32 bias added before masking; a shared
     (1, N, M) bias (or its batch-expanded view) is read with batch
     stride 0;
@@ -261,7 +262,7 @@ def resolve_kernel_args(n: int, m: int, d: int, kd: int, *,
     if block_m < 1:
         raise ValueError(f"block_m must be >= 1, got {block_m}")
     buf = kernel_buffer(kd, block_m, packed, bucket_rounds, legacy)
-    smem = perfmodel.CUDA_STATIC_SMEM + perfmodel.cuda_dynamic_smem(
+    smem = perfmodel.cuda_static_smem(legacy) + perfmodel.cuda_dynamic_smem(
         kd, buf, 4 if packed else 8, legacy)
     limit = perfmodel.H100Config().smem_per_block
     if smem > limit:

@@ -46,12 +46,21 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
+# The tensor-core tile's edges (B, N, M, D, kd): D off the MMA depth
+# (50), D past one staged x slab of 256 features (300), N and M one past
+# a row block and a column chunk (17, 65); the last grid is wider than
+# the card's SMs, so it runs the 8-warp blocks, the others the 16-warp
+# ones.
+TILE_SHAPES = [(2, 17, 65, 50, 9), (1, 17, 65, 300, 5), (3, 65, 130, 50, 16),
+               (12, 200, 65, 300, 9)]
+
 # (B, N, M, D, kd): main-path shapes, ragged edges, D off the chunk
-# multiple, and the longest lists the kernel keeps.
+# multiple, the longest lists the kernel keeps, and the tile's edges.
 DIGC_CASES = [
     (1, 196, 196, 192, 9), (8, 196, 196, 192, 27), (2, 3136, 196, 48, 9),
     (2, 784, 196, 96, 18), (2, 49, 49, 384, 27), (3, 33, 70, 7, 5),
     (1, 100, 300, 240, 144), (2, 65, 256, 16, 256), (1, 1, 1, 4, 1),
+    *TILE_SHAPES,
 ]
 
 
@@ -100,10 +109,10 @@ VARIANTS = {
     "causal": dict(causal=True),
     "causal_pos_packed": dict(causal=True, pos_bias="pos", packed=True),
 }
-# (B, N, M, D, kd): the iso shape, a pyramid stage, ragged edges and the
-# KNN-attention shape (heads as the batch).
+# (B, N, M, D, kd): the iso shape, a pyramid stage, ragged edges, the
+# KNN-attention shape (heads as the batch) and the tile's edges.
 VARIANT_SHAPES = [(2, 196, 196, 192, 18), (2, 784, 196, 96, 9),
-                  (3, 33, 70, 7, 5), (4, 2048, 2048, 32, 32)]
+                  (3, 33, 70, 7, 5), (4, 2048, 2048, 32, 32), *TILE_SHAPES]
 
 
 @pytest.mark.parametrize("b,n,m,d,kd", VARIANT_SHAPES)
@@ -158,10 +167,14 @@ def test_digc_topk_variant_exact_ties(cuda, name):
     assert torch.equal(dist, ref_d)
 
 
-# (B, N, M, D, k): main-path shapes, D not a multiple of 4 (scalar path).
+# (B, N, M, D, k): main-path shapes, D not a multiple of 4 (scalar path),
+# one neighbour, more neighbours than a warp's ids (40), rows of one
+# vector (D = 4) and of 49 (D = 196).
 MRCONV_CASES = [
     (8, 196, 196, 192, 9), (8, 3136, 196, 48, 9), (8, 784, 196, 96, 9),
     (8, 49, 49, 384, 9), (2, 100, 300, 7, 16), (1, 33, 513, 1024, 5),
+    (2, 50, 70, 4, 1), (2, 50, 70, 196, 40), (1, 33, 40, 4, 40),
+    (3, 40, 90, 196, 1),
 ]
 
 
@@ -238,7 +251,7 @@ LEGACY_VARIANTS = {
 }
 LEGACY_SHAPES = [(2, 196, 196, 192, 18), (2, 784, 196, 96, 9),
                  (3, 33, 70, 7, 5), (2, 40, 40, 8, 16),
-                 (4, 2048, 2048, 32, 32)]
+                 (4, 2048, 2048, 32, 32), *TILE_SHAPES]
 
 
 def _legacy_args(b, n, m, d, kd, kw, block_m, dev):
@@ -293,3 +306,4 @@ def test_digc_topk_legacy_exact_ties(cuda, name):
     torch.cuda.synchronize()
     assert torch.equal(idx, ref_i)
     assert torch.equal(dist, ref_d)
+

@@ -6,12 +6,13 @@ for their fields, budgets and ranking."""
 
 import itertools
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro.core import perfmodel as jperf  # noqa: E402
-from repro_torch.core import perfmodel  # noqa: E402
+from repro_torch.core import DigcSpec, perfmodel  # noqa: E402
 from repro_torch.core.tuner import DigcTuner  # noqa: E402
 
 SHAPES = [(196, 196, 192, 8), (3136, 196, 48, 9), (784, 196, 96, 18),
@@ -82,7 +83,13 @@ def test_h100_estimate_fields(merge, rounds, packed):
                         "traffic_saving"}
     assert est["latency_s"] == max(est["compute_s"], est["memory_s"],
                                    est["merge_s"]) > 0
-    assert est["compute_s"] == 2 * 196 * 196 * 192 / 67e12
+    # The product on the tensor cores: three TF32 products per fp32
+    # product (split TF32), one bf16 product with mxu_bf16.
+    assert est["compute_s"] == 3 * (2 * 196 * 196 * 192) / 495e12
+    bf16 = perfmodel.h100_digc_estimate(196, 196, 192, 9, 2, block_m=252,
+                                        kernel_merge=merge, packed=packed,
+                                        bucket_rounds=rounds, mxu_bf16=True)
+    assert bf16["compute_s"] == 2 * 196 * 196 * 192 / 989e12
     assert est["traffic_saving"] == est["naive_hbm_bytes"] / est["hbm_bytes"]
     cfg = perfmodel.H100Config()
     assert cfg.lane_ops == 132 * 64 * 1.98e9
@@ -101,12 +108,16 @@ def test_h100_merge_work_grows_with_kd_for_legacy_only():
 def test_kernel_tile_defaults_fit_shared_memory(n, m, d, kd):
     assert perfmodel.kernel_tile_defaults(n, m, d, kd) == (
         perfmodel.CUDA_BLOCK_N, perfmodel.CUDA_CHUNK_M)
+    cfg = perfmodel.H100Config()
     for key_bytes in (4, 8):
         buf = perfmodel.cuda_merge_buffer(kd, key_bytes)
-        smem = (perfmodel.CUDA_STATIC_SMEM
+        smem = (perfmodel.cuda_static_smem(True)
                 + perfmodel.cuda_dynamic_smem(kd, buf, key_bytes, True))
-        assert smem * perfmodel.CUDA_BLOCKS_PER_SM <= perfmodel.H100Config(
-        ).smem_per_sm
+        assert smem * perfmodel.CUDA_BLOCKS_PER_SM <= cfg.smem_per_sm
+        assert smem <= cfg.smem_per_block
+        bitonic = (perfmodel.cuda_static_smem(False)
+                   + perfmodel.cuda_dynamic_smem(kd, 0, key_bytes, False))
+        assert bitonic <= cfg.smem_per_block
 
 
 def test_kernel_prior_penalizes_plain_version_off_card():
@@ -160,3 +171,36 @@ def test_card_kernel_prior_adds_the_fitted_call_cost(merge):
     assert perfmodel._ENGINE_CONSTANTS["cuda"]["tile"] > 0
     assert not any(perfmodel._ENGINE_CONSTANTS["cuda"][t]
                    for t in ("gemm", "topk", "lane", "byte"))
+
+
+
+def test_tuner_prior_takes_the_spec_s_mxu_bf16():
+    """A ``cuda`` candidate tuned for an ``mxu_bf16`` spec multiplies bf16
+    operands, so the tuner's prior and its log take the spec's flag down
+    to the Hopper estimate's bf16 compute term (a sixth of split TF32's);
+    the estimate is memory-bound at these shapes, so the rank stays."""
+    shape = (4096, 4096, 1024, 9)
+    for bf16 in (False, True):
+        est = perfmodel.h100_digc_estimate(*shape, 1, mxu_bf16=bf16)
+        assert est["compute_s"] == (1 if bf16 else 3) * 2 * 4096 * 4096 * 1024 / (
+            989e12 if bf16 else 495e12)
+    card = DigcTuner(backend="cuda")
+    cfg = next(c for c in card.candidates(4096, 4096, d=1024, kd=9)
+               if c.impl == "cuda")
+    assert card.prior(cfg, b=2, n=4096, m=4096, d=1024, kd=9,
+                      mxu_bf16=True) == perfmodel.kernel_cost_estimate(
+        *shape, b=2, block_n=cfg.block_n, block_m=cfg.block_m,
+        kernel_merge=cfg.kernel_merge, mxu_bf16=True,
+        backend="cuda")["total_s"]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 64, 8)).astype(np.float32))
+    # Priors as on a card, measured here (a cuda candidate runs its plain
+    # version on CPU tensors).
+    tuner = DigcTuner(None, device="cpu", backend="cuda", measure_iters=1,
+                      max_measure=1)
+    tuner.tune(x, spec=DigcSpec(impl="blocked", k=4, mxu_bf16=True))
+    (entry,) = tuner.log
+    assert entry["mxu_bf16"] is True
+    assert entry["ranked"] == [
+        (c, tuner.prior(c, b=1, n=64, m=64, d=8, kd=4, mxu_bf16=True))
+        for c, _ in entry["ranked"]]
