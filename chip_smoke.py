@@ -54,11 +54,33 @@ Phases, each printed as it runs; any failure exits non-zero:
     cost model fitted to the blocked tier's measured times;
 13. ``tune_schedule`` for full-width ``vig_ti_pyr`` (four stages, B = 8)
     and one forward through the tuned ``VigSchedule`` beside the
-    reference tier.
+    reference tier;
+14. the stateful engine on the ``cuda`` tier: the phase-4 trace, every
+    request's logits bit for bit those of a stateless ``vig_forward`` of
+    its tick's bucket batch, launch counts equal to phase 4's, the state
+    rows unchanged, and requests/s in turns beside a stateless replay of
+    the same bucket batches (the cost of the per-tick row copies);
+15. stale-graph serving on the ``blocked`` tier, untuned: 8 video-like
+    tenants x 8 frames (frame t + 1 = frame t + N(0, 0.001^2) pixel
+    noise; pixels are N(0, 1)) plus one tenant whose every frame is a new image. Checks that
+    ``reuse="tick", drift_tau=0.0`` serves logits bit for bit those of
+    ``reuse=None``; runs ``tune_reuse`` at policy ``tick`` on the
+    features of the first 3 ticks; serves the trace under ``tick``,
+    ``layer`` and ``overlap`` at the tuned tau (the smallest swept tau
+    when none is admitted) and prints, per policy, the reuse fraction,
+    ``graph_reuses`` / ``graph_rebuilds``, the served-vs-fresh recall,
+    the gate's host reads per tick and the median tick beside
+    ``reuse=None``; the new-image tenant must rebuild on every tick;
+16. parking: 6 tenants, each resending one frame (a still scene),
+    cycling through 4 slots (``park_capacity=8``) on the phase-15 spec:
+    parked tenants come back (``park_hits > 0``) and their next tick
+    serves their cached graph (``graph_age > 0``);
+    ``release()`` drops a parked copy and resets a bound slot.
 
-Each path of phases 4, 5, 8, 10 and 12 runs with the launch counts set
-to 0 just before it and read just after; a kernel or variant of that path
-with no launch fails the run. The line before the last is the kernel summary
+Each path of phases 4, 5, 8, 10, 12 and 14 runs with the launch counts
+set to 0 just before it and read just after; a kernel or variant of that
+path with no launch fails the run (phases 9, 15 and 16 run the blocked
+tier, which must launch none). The line before the last is the kernel summary
 as JSON (one entry per kernel and DIGC variant); the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result.
@@ -83,7 +105,9 @@ from repro_torch import testing  # noqa: E402
 from repro_torch.core import DigcSpec, DigcTuner, digc, grid_pos_bias  # noqa: E402
 from repro_torch.core import perfmodel  # noqa: E402
 from repro_torch.core.tuner import LEGACY_TILES, time_calls  # noqa: E402
+from repro_torch.core.digc import drift_stat  # noqa: E402
 from repro_torch.core.knn_attention import knn_attention_mha  # noqa: E402
+from repro_torch.core.tuner import tune_reuse  # noqa: E402
 from repro_torch.core.packedkey import idx_bits_for  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ops, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.digc_topk import BIG, digc_topk_cuda, digc_topk_plain  # noqa: E402
@@ -405,12 +429,11 @@ def serve_iso(title: str, digc_impl, variant: dict):
     return eng, images, counts, len(reqs), capture, worst, rps
 
 
-def serving() -> tuple[int, dict, float]:
+def serving() -> tuple[dict, dict, float]:
     eng, images, counts, served, _, _, rps = serve_iso(
         "4. serving vig_ti_iso at full width", "cuda", {})
     profile_tick(eng, images)
-    return (counts["digc_topk"], {k: v / served for k, v in counts.items()},
-            rps)
+    return counts, {k: v / served for k, v in counts.items()}, rps
 
 
 def profile_tick(eng, images) -> None:
@@ -652,23 +675,33 @@ def timings(per_request: dict) -> dict:
                                        largest=False)))
         variants = {**PACKED_BF16, "pos_bias": dict(pos_bias=stage_pos_bias(n, m)),
                     **timed_legacy(m, kd)}
+        library = {
+            "legacy": lambda: torch.topk(torch.cdist(x, y), kd, dim=-1,
+                                         largest=False),
+            # squared distances, so the bias adds as the kernel adds it
+            "pos_bias": lambda: torch.topk(
+                torch.cdist(x, y).square_().add_(variants["pos_bias"]["pos_bias"]),
+                kd, dim=-1, largest=False),
+        }
         for vname, kw in variants.items():
             rows.setdefault(f"digc_topk.{vname}", []).append(digc_row(
                 b, n, m, d, kd, lambda: digc_topk_cuda(x, y, kd, **kw),
                 lambda: digc_topk_plain(x, y, kd, **kw),
                 pos="pos_bias" in kw, bf16=kw.get("mxu_bf16", False),
-                library=(lambda: torch.topk(torch.cdist(x, y), kd, dim=-1,
-                                            largest=False))
-                if vname == "legacy" else None))
+                library=library.get(vname)))
     # The KNN attention shape: heads as the batch, causal and not.
     q, k, _ = (t.transpose(0, 1).contiguous() for t in knn_inputs())
     h, seq, dh, nn = KNN["heads"], KNN["seq"], KNN["dh"], KNN["nn"]
+    above = torch.ones(seq, seq, dtype=torch.bool, device=DEV).triu(1)
     for vname, causal in (("digc_topk", False), ("digc_topk.causal", True)):
         rows.setdefault(vname, []).append(digc_row(
             h, seq, seq, dh, nn,
             lambda: digc_topk_cuda(q, k, nn, causal=causal),
             lambda: digc_topk_plain(q, k, nn, causal=causal),
-            pairs=seq * (seq + 1) // 2 if causal else None))
+            pairs=seq * (seq + 1) // 2 if causal else None,
+            library=lambda: torch.topk(
+                torch.cdist(q, k).masked_fill_(above, float("inf"))
+                if causal else torch.cdist(q, k), nn, dim=-1, largest=False)))
     for n, m, d, k in sorted(mr):
         x = to_dev(testing.features(1, b, n, d))
         y = to_dev(testing.features(2, b, m, d))
@@ -686,6 +719,10 @@ def timings(per_request: dict) -> dict:
                                    bound_ms=bms, bound_by=by))
     labels = {"digc_topk": "torch.cdist + torch.topk (two calls)",
               "digc_topk.legacy": "torch.cdist + torch.topk (two calls)",
+              "digc_topk.pos_bias": "torch.cdist, square, + bias, torch.topk "
+                                    "(four calls)",
+              "digc_topk.causal": "torch.cdist, causal mask, torch.topk "
+                                  "(three calls)",
               "mrconv": "index_select + subtract + amax (three calls)"}
     for name, rs in rows.items():
         if name in ("digc_topk", "mrconv"):
@@ -1093,12 +1130,340 @@ def pyramid_tuned() -> dict:
     return tuning
 
 
+def bucket_batch(eng, reqs: list) -> tuple[list, int]:
+    """The last tick's requests in slot order (a one-shot's slot is the
+    lane no tenant holds) and its bucket."""
+    slot = {id(r): eng._tenant_slot[r.tenant] for r in reqs
+            if r.tenant is not None}
+    free = [s for s in eng.last_lanes if s not in slot.values()]
+    for r in reqs:
+        if r.tenant is None:
+            slot[id(r)] = free.pop(0)
+    return sorted(reqs, key=lambda r: slot[id(r)]), eng.last_bucket
+
+
+def stack_batch(order: list, bucket: int) -> np.ndarray:
+    """The bucket batch as the engine builds it: the images in slot order,
+    padded by replicating lane 0."""
+    imgs = [np.asarray(r.image, np.float32) for r in order]
+    return np.stack(imgs + [imgs[0]] * (bucket - len(imgs)))
+
+
+def stateful_serving(phase4_counts: dict, rps_phase4: float) -> None:
+    phase("14. stateful serving of vig_ti_iso on the cuda tier")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    images = [testing.images(uid, 1, cfg.image_size)[0] for uid in range(20)]
+    eng = VigServeEngine(cfg, params, digc_impl="cuda", device=DEV)
+    serve_trace(eng, images)  # warm-up pass
+    reset_launch_counts()
+    batches = []
+    uid_reqs = []
+    for tick in trace_ticks():
+        reqs = [VigRequest(uid, images[uid], tenant=t) for uid, t in tick]
+        for r in reqs:
+            eng.submit(r)
+        eng.step()
+        batches.append(bucket_batch(eng, reqs))
+        uid_reqs += reqs
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if fired(counts) != fired(phase4_counts):
+        raise AssertionError(f"launches {fired(counts)}, phase 4 "
+                             f"{fired(phase4_counts)}")
+    with torch.inference_mode():
+        for order, bucket in batches:
+            ref = vig.vig_forward(params, to_dev(stack_batch(order, bucket)),
+                                  cfg, digc_impl="cuda").cpu().numpy()
+            for i, r in enumerate(order):
+                if not np.array_equal(r.logits, ref[i]):
+                    raise AssertionError(
+                        f"request {r.uid}: logits differ from the stateless "
+                        f"forward of its bucket batch by "
+                        f"{float(np.abs(r.logits - ref[i]).max())}")
+    steps = eng.slot_row_steps()
+    if any(any(v) for v in steps.values()) or eng.stats()["gate_reads"]:
+        raise AssertionError(f"the stateless tier moved the state: {steps}")
+    print(f"{len(uid_reqs)} requests over {len(batches)} ticks: logits bit "
+          f"for bit those of a stateless forward of each bucket batch; "
+          f"launches {fired(counts)} (phase 4: {fired(phase4_counts)}); "
+          f"state rows unchanged; parked {eng.stats()['parked_tenants']}")
+
+    def stateless_pass() -> float:
+        """The same bucket batches through vig_forward with no engine and
+        no state: per tick, stack the images as the engine does, upload,
+        forward, logits to the host."""
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for order, bucket in batches:
+                batch = torch.from_numpy(stack_batch(order, bucket)).to(DEV)
+                out = vig.vig_forward(params, batch, cfg, digc_impl="cuda")
+                out[:len(order)].cpu().numpy()
+        return time.perf_counter() - t0
+
+    stateless_pass()
+    rps: dict = {"engine": [], "stateless": []}
+    for _ in range(3):
+        for name in ("engine", "stateless", "stateless", "engine"):
+            sec = (serve_trace(eng, images)[2] if name == "engine"
+                   else stateless_pass())
+            rps[name].append(20 / sec)
+    print(f"requests/s: phase 4 (the stateful engine, earlier in this call) "
+          f"{rps_phase4:.2f}; in turns (engine, stateless, stateless, engine, "
+          f"three rounds), the stateful engine: "
+          f"{', '.join(f'{v:.2f}' for v in rps['engine'])} (median "
+          f"{statistics.median(rps['engine']):.2f}); a stateless forward of "
+          f"the same bucket batches: "
+          f"{', '.join(f'{v:.2f}' for v in rps['stateless'])} (median "
+          f"{statistics.median(rps['stateless']):.2f})")
+    # The per-tick row copies alone, at bucket 8 with 5 live lanes.
+    state = eng._ensure_slot_state()
+    rows, lanes = [0, 1, 2, 3, 4, 0, 0, 0], [0, 1, 2, 3, 4]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        state.put_rows(state.take_rows(rows), lanes)
+    torch.cuda.synchronize()
+    print(f"take_rows + put_rows of a bucket-8 tick: "
+          f"{(time.perf_counter() - t0) * 10:.3f} ms on the host clock "
+          f"(mean of 100, synchronized after the loop)")
+
+
+# Phase 15's trace: pixel noise between a video tenant's frames (pixels
+# are N(0, 1): a static scene with sensor noise), frames a tenant, video
+# tenants, and the drift gates tune_reuse sweeps.
+VIDEO_SIGMA = 0.001
+VIDEO_FRAMES = 8
+VIDEO_TENANTS = 8
+TAUS = (1e-5, 1e-4, 1e-3, 1e-2)
+
+
+def video_frames(size: int) -> dict:
+    """{tenant: frames}: VIDEO_TENANTS video-like tenants (frame t + 1 =
+    frame t + N(0, VIDEO_SIGMA^2) pixel noise) and "new", whose every
+    frame is a new image."""
+    rng = np.random.default_rng(15)
+    frames = {}
+    for i in range(VIDEO_TENANTS):
+        seq = [testing.images(1000 + i, 1, size)[0]]
+        for _ in range(VIDEO_FRAMES - 1):
+            seq.append((seq[-1] + VIDEO_SIGMA * rng.standard_normal(
+                seq[-1].shape)).astype(np.float32))
+        frames[f"v{i}"] = seq
+    frames["new"] = [testing.images(2000 + t, 1, size)[0]
+                     for t in range(VIDEO_FRAMES)]
+    return frames
+
+
+def serve_video(eng, frames: dict, log=None) -> dict:
+    """Every tenant's frame t at tick t. Returns each tick's requests and
+    host-clock ms, and whether the new-image tenant's graph snapshot
+    moved (it rebuilt) on every tick. With ``log`` (a recording digc),
+    the served-vs-fresh neighbour hits of the live rows."""
+    out = {"reqs": [], "ms": [], "rebuilt": [], "hits": 0, "total": 0}
+    for t in range(VIDEO_FRAMES):
+        reqs = [VigRequest(100 * t + i, seq[t], tenant=name)
+                for i, (name, seq) in enumerate(frames.items())]
+        for r in reqs:
+            eng.submit(r)
+        def new_snap():
+            """The new-image tenant's graph snapshot, None before it has a
+            slot or without stale-graph buffers (reuse off)."""
+            st = eng._slot_state
+            if st is None or "new" not in eng._tenant_slot:
+                return None
+            snaps = st.entries["stage0"].graph_snap
+            return None if snaps is None else snaps[eng._tenant_slot["new"]].item()
+
+        before = new_snap()
+        if log is not None:
+            log.clear()
+        s = time.perf_counter()
+        eng.step()
+        out["ms"].append((time.perf_counter() - s) * 1e3)
+        out["reqs"].append(reqs)
+        out["rebuilt"].append(before is None or new_snap() != before)
+        a = len(eng.last_lanes)
+        for served, fresh in (log or []):
+            out["hits"] += int((served[:a, :, :, None] == fresh[:a, :, None, :])
+                               .any(-1).sum())
+            out["total"] += fresh[:a].numel()
+    return out
+
+
+def recording_digc(log: list):
+    """A stand-in for ``models.vig``'s digc that also records each call's
+    served graph beside a fresh build on the same features."""
+    real = vig.digc
+
+    def record(h, cond=None, *, spec, **kw):
+        out = real(h, cond, spec=spec, **kw)
+        fresh = real(h, cond, spec=spec.replace(reuse=None, drift_tau=None,
+                                                max_stale=None))
+        log.append((out[0] if isinstance(out, tuple) else out, fresh))
+        return out
+
+    return real, record
+
+
+def stale_graph_serving() -> DigcSpec:
+    phase(f"15. stale-graph serving of vig_ti_iso on the blocked tier: "
+          f"{VIDEO_TENANTS} video tenants x {VIDEO_FRAMES} frames "
+          f"(sigma {VIDEO_SIGMA}) + a new-image tenant")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    frames = video_frames(cfg.image_size)
+    off = DigcSpec(impl="blocked", k=cfg.k)
+
+    def engine(spec):
+        return VigServeEngine(cfg, params, digc_impl=spec, autotune=False,
+                              buckets=(1, 2, 4, 8, 16), device=DEV)
+
+    reset_launch_counts()
+    base = serve_video(engine(off), frames)
+    zero_spec = off.replace(reuse="tick", drift_tau=0.0)
+    zero_eng = engine(zero_spec)
+    zero = serve_video(zero_eng, frames)
+    for reqs, zreqs in zip(base["reqs"], zero["reqs"]):
+        for r, z in zip(reqs, zreqs):
+            if not np.array_equal(r.logits, z.logits):
+                raise AssertionError(f"drift_tau=0 request {z.uid}: logits "
+                                     "differ from reuse=None")
+    if zero_eng.stats()["gate_reads"] or zero_eng.stats()["graph_reuses"]:
+        raise AssertionError("drift_tau=0 engaged the gate")
+    print(f"reuse='tick', drift_tau=0.0: {sum(map(len, zero['reqs']))} "
+          f"requests bit for bit those of reuse=None; no gate read")
+
+    # tune_reuse on the features of the first 3 ticks (tenants in slot
+    # order, as the engine batches them)
+    ticks = []
+    with torch.inference_mode():
+        for t in range(3):
+            cap: list = []
+            batch = np.stack([seq[t] for seq in frames.values()])
+            vig.vig_forward(params, to_dev(batch), cfg, digc_impl=off,
+                            digc_capture=cap)
+            ticks.append(cap)
+        stats = [drift_stat(h).cpu().numpy() for t in ticks for _, h, _ in t[:1]]
+    print("block-0 drift between ticks 0-1, 1-2, per tenant: " + "; ".join(
+        " ".join(f"{v:.2e}" for v in np.abs(b - a) / np.abs(a))
+        for a, b in zip(stats, stats[1:])))
+    tuned, results = tune_reuse(ticks, spec=off, policy="tick", taus=TAUS)
+    for r in results:
+        print(f"  tune_reuse tick tau {r.drift_tau:g}: reuse {r.reuse_frac:.3f}, "
+              f"recall {r.recall:.4f}, admitted {r.admitted}")
+    if tuned.reuse is not None:
+        tau = tuned.drift_tau
+        print(f"admitted tau {tau:g}")
+    else:
+        tau = TAUS[0]
+        print(f"no tau admitted at the 0.95 recall floor; the policies below "
+              f"serve at the smallest swept tau, {tau:g}, for the measurement")
+
+    policies = ("tick", "layer", "overlap")
+    specs = {p: off.replace(reuse=p, drift_tau=tau, max_stale=4)
+             for p in policies}
+    # Latency passes in turns (off, the policies, then back), each on a
+    # fresh engine; the medians pool both passes' ticks.
+    ms: dict = {"off": [], **{p: [] for p in policies}}
+    runs: dict = {}
+    order = ("off",) + policies
+    for name in order + order[::-1]:
+        eng = engine(off if name == "off" else specs[name])
+        res = serve_video(eng, frames)
+        ms[name] += res["ms"]
+        runs[name] = (eng, res)
+    counts = launch_counts()
+    if fired(counts):
+        raise AssertionError(f"the blocked tier launched {fired(counts)}")
+    print(f"reuse=None: median tick {statistics.median(ms['off']):.2f} ms "
+          f"over {len(ms['off'])} ticks (9 live lanes, bucket 16)")
+    for p in policies:
+        eng, res = runs[p]
+        st = eng.stats()
+        lanes = st["graph_reuses"] + st["graph_rebuilds"]
+        log: list = []
+        real, record = recording_digc(log)
+        vig.digc = record
+        try:
+            rec = serve_video(engine(specs[p]), frames, log)
+        finally:
+            vig.digc = real
+        if not all(res["rebuilt"]) or not all(rec["rebuilt"]):
+            raise AssertionError(f"{p}: the new-image tenant served a cached "
+                                 f"graph on a tick: {res['rebuilt']}")
+        for reqs in res["reqs"]:
+            if not all(np.isfinite(r.logits).all() for r in reqs):
+                raise AssertionError(f"{p}: non-finite logits")
+        print(f"{p} (tau {tau:g}, max_stale 4): reuse fraction "
+              f"{st['graph_reuses'] / lanes:.3f} (graph_reuses "
+              f"{st['graph_reuses']} / graph_rebuilds {st['graph_rebuilds']}); "
+              f"served-vs-fresh recall {rec['hits'] / rec['total']:.4f}; host "
+              f"reads per tick {st['gate_reads'] / VIDEO_FRAMES:.1f}; median "
+              f"tick {statistics.median(ms[p]):.2f} ms (reuse=None "
+              f"{statistics.median(ms['off']):.2f}); drift mean "
+              f"{st['drift']['mean']:.3g}; new-image tenant rebuilt every tick")
+    return specs["tick"]
+
+
+def parking(spec: DigcSpec) -> None:
+    phase("16. parking: 6 tenants cycling through 4 slots, park_capacity 8")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    frames = video_frames(cfg.image_size)
+    names = [f"v{i}" for i in range(6)]
+    eng = VigServeEngine(cfg, params, digc_impl=spec, autotune=False,
+                         buckets=(1, 2, 4), park_capacity=8, device=DEV)
+    served = {n: 0 for n in names}
+    warm_returns = 0
+    reset_launch_counts()
+    for t in range(VIDEO_FRAMES):
+        tick = [names[(t + j) % 6] for j in range(4)]
+        for n in tick:  # a still scene: each tenant resends its first frame
+            eng.submit(VigRequest(100 * t + served[n], frames[n][0], tenant=n))
+            served[n] += 1
+        eng.step()
+        ent = eng._slot_state.entries["stage0"]
+        for slot in eng.last_restores:
+            age = int(ent.graph_age[slot])
+            if age <= 0:
+                raise AssertionError(f"tick {t}: re-admitted {eng.slot_tenant[slot]} "
+                                     f"rebuilt (graph_age {age})")
+            warm_returns += 1
+    if fired(launch_counts()):
+        raise AssertionError(f"the blocked tier launched {fired(launch_counts())}")
+    st = eng.stats()
+    if st["park_hits"] <= 0 or warm_returns != st["park_hits"]:
+        raise AssertionError(f"park_hits {st['park_hits']}, warm returns "
+                             f"{warm_returns}")
+    parked = st["parked_tenants"]
+    print(f"park_hits {st['park_hits']} (each returning tenant served its "
+          f"cached graph, graph_age > 0), park_evictions "
+          f"{st['park_evictions']}, parked {parked}, graph_reuses "
+          f"{st['graph_reuses']} / graph_rebuilds {st['graph_rebuilds']}")
+    gone = parked[0]
+    eng.release(gone)
+    bound = next(n for n in names if n in eng._tenant_slot)
+    slot = eng._tenant_slot[bound]
+    eng.release(bound)
+    ent = eng._slot_state.entries["stage0"]
+    if (gone in eng._parked or eng.slot_tenant[slot] is not None
+            or int(ent.row_step[slot]) or int(ent.graph_age[slot])):
+        raise AssertionError("release() kept a parked copy or a slot's rows")
+    print(f"release({gone!r}) dropped its parked copy; release({bound!r}) "
+          f"freed slot {slot} and reset its rows")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
     calibrate_sleep()
     err_digc = kernels_vs_plain()
-    launches, per_request, rps_exact = serving()
+    phase4_counts, per_request, rps_exact = serving()
+    launches = phase4_counts["digc_topk"]
     pyramid()
     rows = timings(per_request)
     err_variants = variants_vs_plain()
@@ -1108,6 +1473,9 @@ def main() -> None:
     err_legacy = legacy_vs_plain()
     tuning_counts, bucket_counts, _ = tuned_serving(rps_exact)
     pyramid_tuned()
+    stateful_serving(phase4_counts, rps_exact)
+    spec = stale_graph_serving()
+    parking(spec)
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

@@ -1,6 +1,6 @@
 # Dynamic Image Graph Construction (DIGC) in PyTorch: the spec + builder
-# registry, the reference and blocked tiers, the graph ops, the tuner and
-# the cost models.
+# registry, the reference and blocked tiers, the graph ops, the functional
+# DIGC state, the tuner and the cost models.
 # Batched-first: (B, N, D) in, (B, N, k) int32 out, with (N, D) promoted
 # to B=1. The ``cuda`` tier registers from ``repro_torch.kernels.ops`` on
 # first use.
@@ -45,6 +45,11 @@ from repro_torch.core.perfmodel import (
     fpga_latency_ms,
     h100_digc_estimate,
     vig_resolution_to_nodes,
+)
+from repro_torch.core.state import (
+    DigcState,
+    DigcStateEntry,
+    state_entry,
 )
 from repro_torch.core.tuner import (
     DigcTuner,

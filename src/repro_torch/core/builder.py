@@ -94,11 +94,32 @@ class DigcSpec:
 
 
 _COMMON_FIELDS = ("impl", "k", "dilation", "causal")
-# Stale-graph reuse knobs (accepted by stateful tiers).
-REUSE_KNOBS: frozenset = frozenset({"reuse", "drift_tau", "max_stale"})
 KNOB_FIELDS: tuple[str, ...] = tuple(
     f.name for f in dataclasses.fields(DigcSpec) if f.name not in _COMMON_FIELDS
 )
+
+# -- stale-graph reuse policy ----------------------------------------------
+
+REUSE_POLICIES: tuple[str, ...] = ("off", "layer", "tick", "overlap")
+# Stale-graph reuse knobs (accepted by stateful tiers).
+REUSE_KNOBS: frozenset = frozenset({"reuse", "drift_tau", "max_stale"})
+DEFAULT_DRIFT_TAU = 0.05
+DEFAULT_MAX_STALE = 4
+
+
+def reuse_params(spec: DigcSpec) -> tuple[Optional[str], float, int]:
+    """The spec's effective (policy, drift_tau, max_stale) triple.
+
+    Policy is None when reuse is off ("off" and unset both mean every call
+    rebuilds). Unset knobs take the serving defaults; the values are
+    checked by ``GraphBuilder.validate``.
+    """
+    policy = spec.reuse if spec.reuse not in (None, "off") else None
+    tau = (float(spec.drift_tau) if spec.drift_tau is not None
+           else DEFAULT_DRIFT_TAU)
+    stale = (int(spec.max_stale) if spec.max_stale is not None
+             else DEFAULT_MAX_STALE)
+    return policy, tau, stale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +128,12 @@ class GraphBuilder:
 
     ``build(x, y, pos_bias, spec) -> (idx, dist)``; builders with
     ``supports_pad`` also take ``m_valid=`` ((M,) or (B, M) bool marking
-    live co-nodes). ``aggregate`` is an optional fused neighbour
-    aggregation (x, y, idx) -> (B, N, D); None means ``mr_aggregate``.
+    live co-nodes), builders with ``supports_state`` take
+    ``state_entry=`` (a ``core.state.DigcStateEntry``) and then return
+    ``(idx, dist, new_entry)``; for every other builder ``digc()`` passes
+    the state through unchanged. ``aggregate`` is an optional fused
+    neighbour aggregation (x, y, idx) -> (B, N, D); None means
+    ``mr_aggregate``.
     """
 
     name: str
@@ -117,6 +142,7 @@ class GraphBuilder:
     supports_pos_bias: bool = False
     supports_causal: bool = False
     supports_pad: bool = False
+    supports_state: bool = False
     aggregate: Optional[Callable] = None
     doc: str = ""
 
@@ -136,6 +162,35 @@ class GraphBuilder:
             raise ValueError(f"DIGC impl {self.name!r} does not support causal")
         if has_pos_bias and not self.supports_pos_bias:
             raise ValueError(f"DIGC impl {self.name!r} does not support pos_bias")
+        # Reuse-policy values (the knob names were screened above): a
+        # malformed policy fails at dispatch, not ticks later as a silent
+        # always-rebuild.
+        if spec.reuse is not None and spec.reuse not in REUSE_POLICIES:
+            raise ValueError(
+                f"DigcSpec.reuse={spec.reuse!r} is not a reuse policy; "
+                f"valid: {REUSE_POLICIES}"
+            )
+        if spec.drift_tau is not None:
+            if spec.drift_tau < 0:
+                raise ValueError(
+                    f"DigcSpec.drift_tau must be >= 0, got {spec.drift_tau}"
+                )
+            if spec.reuse in (None, "off"):
+                raise ValueError(
+                    "DigcSpec.drift_tau is set but reuse is off; pass "
+                    "reuse='layer'|'tick'|'overlap' (a gate threshold "
+                    "without a gate is a config error)"
+                )
+        if spec.max_stale is not None:
+            if spec.max_stale < 1:
+                raise ValueError(
+                    f"DigcSpec.max_stale must be >= 1, got {spec.max_stale}"
+                )
+            if spec.reuse in (None, "off"):
+                raise ValueError(
+                    "DigcSpec.max_stale is set but reuse is off; pass "
+                    "reuse='layer'|'tick'|'overlap'"
+                )
 
 
 _REGISTRY: dict[str, GraphBuilder] = {}

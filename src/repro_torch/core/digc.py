@@ -11,13 +11,25 @@ euclidean distance:
 
 Inputs may be (B, N, D) / (B, M, D) or (N, D) / (M, D) (promoted to B=1,
 outputs squeezed back). ``digc`` is the public entry: a lookup into the
-GraphBuilder registry. This module registers the ``reference`` tier;
-``kernels/ops.py`` registers the ``cuda`` tier. The stateful paths of the
-JAX entry (``state=``, ``cache=``, ``fault_plan=``) are not ported yet.
+GraphBuilder registry. This module registers the ``reference`` and
+``blocked`` tiers; ``kernels/ops.py`` registers the ``cuda`` tier.
+
+``digc(..., state=, state_key=)`` is the functional form: it threads a
+``core.state.DigcState`` through the call and returns it updated. Around
+every stateful builder (the ``blocked`` tier) sits the drift-gated
+stale-graph reuse gate (DESIGN.md §12): when a row's features drifted
+less than ``drift_tau`` since its cached graph was built, and the graph
+is younger than ``max_stale`` gated calls, the cached graph is served
+and the build skipped. Where the JAX package branches with ``lax.cond``
+inside one compiled program, the port branches in Python on one
+device -> host read of the gate's decision per gated call
+(``gate_reads()`` counts them). Not ported: the eager ``cache=`` shim
+and ``fault_plan=``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -31,6 +43,7 @@ from repro_torch.core.builder import (
     promote_batch,
     register,
     resolve_spec,
+    reuse_params,
 )
 from repro_torch.core.engine import stream_topk
 
@@ -143,6 +156,136 @@ def digc_blocked(
     return idx
 
 
+# --------------------------------------------------------------------------
+# Drift-gated stale-graph reuse (DESIGN.md §12).
+#
+# The graph index is a cached, versioned artifact in the DigcStateEntry
+# (graph_idx/graph_dist, the graph_snap drift snapshot and the graph_age
+# staleness counter). The gate wraps any supports_state builder's build,
+# per batch row, so co-batched tenants gate independently.
+
+# Device -> host reads the gate made to decide a branch in this process.
+gate_host_reads = 0
+
+
+def gate_reads() -> int:
+    """Device -> host reads the reuse gate made to pick its branch (one
+    per gated call; the JAX package decides inside its program)."""
+    return gate_host_reads
+
+
+def reset_gate_reads() -> None:
+    global gate_host_reads
+    gate_host_reads = 0
+
+
+def _all_rows(flags: torch.Tensor) -> bool:
+    """``flags.all()`` read on the host: the gate's one sync per call."""
+    global gate_host_reads
+    gate_host_reads += 1
+    return bool(flags.all())
+
+
+def drift_stat(x: torch.Tensor) -> torch.Tensor:
+    """The per-row feature statistic the reuse gate compares: mean |x|^2
+    over nodes and channels, (B, N, D) -> (B,) float32. Summed in another
+    order than XLA's, so it differs from the JAX package's by ulps."""
+    return x.float().square().mean(dim=(1, 2))
+
+
+def _mix_rows(sel_row: torch.Tensor, kept, built):
+    """Per-row select: ``sel_row`` (B,) True keeps ``kept``'s row. None
+    passes ``built`` through."""
+    if kept is None or built is None:
+        return built
+    sel = sel_row.reshape(sel_row.shape + (1,) * (built.ndim - 1))
+    return torch.where(sel, kept, built)
+
+
+def _stateful_build(builder, x3, y_arg, p3, spec, entry, m_valid=None):
+    kw = {} if m_valid is None else {"m_valid": m_valid}
+    return builder.build(x3, y_arg, p3, spec, state_entry=entry, **kw)
+
+
+def _reuse_build(builder, x3, y_arg, p3, spec, entry, *, reuse_first,
+                 m_valid=None):
+    """The drift-gated reuse path around a stateful builder's build.
+
+    Returns (idx, dist, new_entry). It is the plain stateful build (bit
+    for bit ``reuse="off"``) whenever the policy cannot engage: no
+    cached-graph buffers in the entry, a cached shape from another
+    workload, or ``drift_tau == 0`` under ``layer`` / ``tick`` (a zero
+    threshold admits no drift, including none at all).
+    """
+    policy, tau, max_stale = reuse_params(spec)
+    b, n, _ = x3.shape
+    if (policy is None or entry.graph_idx is None
+            or tuple(entry.graph_idx.shape) != (b, n, spec.k)):
+        return _stateful_build(builder, x3, y_arg, p3, spec, entry, m_valid)
+    if policy in ("layer", "tick") and tau == 0.0:
+        return _stateful_build(builder, x3, y_arg, p3, spec, entry, m_valid)
+
+    valid = (entry.row_warm if entry.row_step is not None
+             else entry.warm.expand(b))
+    stat = drift_stat(x3)
+    if policy == "overlap":
+        return _overlap_build(builder, x3, y_arg, p3, spec, entry,
+                              valid=valid, stat=stat, m_valid=m_valid)
+
+    drift = (stat - entry.graph_snap).abs() / entry.graph_snap.abs().clamp_min(1e-9)
+    if policy == "tick" and not reuse_first:
+        # Within a tick, calls after the stage's gated first one reuse
+        # what that call left, without aging: staleness counts ticks.
+        reuse_row = valid
+        age_inc = 0
+    else:
+        reuse_row = valid & (entry.graph_age < max_stale) & (drift < tau)
+        age_inc = 1
+
+    # All rows reuse: the serving steady state, no distance compute.
+    if _all_rows(reuse_row):
+        return (entry.graph_idx, entry.graph_dist,
+                entry.bump(graph_age=entry.graph_age + age_inc))
+
+    f_idx, f_dist, built = _stateful_build(builder, x3, y_arg, p3, spec,
+                                           entry, m_valid)
+    idx = _mix_rows(reuse_row, entry.graph_idx, f_idx)
+    dist = _mix_rows(reuse_row, entry.graph_dist, f_dist)
+    # A reused row carries exactly the builder state its solo replay
+    # (which never built) would: keep its centroids and norms.
+    return idx, dist, dataclasses.replace(
+        built,
+        centroids=_mix_rows(reuse_row, entry.centroids, built.centroids),
+        sq_y=_mix_rows(reuse_row, entry.sq_y, built.sq_y),
+        graph_idx=idx,
+        graph_dist=dist,
+        graph_snap=torch.where(reuse_row, entry.graph_snap, stat),
+        graph_age=torch.where(reuse_row, entry.graph_age + age_inc,
+                              torch.zeros_like(entry.graph_age)),
+    )
+
+
+def _overlap_build(builder, x3, y_arg, p3, spec, entry, *, valid, stat,
+                   m_valid=None):
+    """Double-buffered overlap: warm rows are served the cached (one call
+    stale) graph unconditionally, and the refresh build flows only into
+    the returned entry (the next call's cache). Cold rows take a build in
+    the mixed branch (a second build that call, cold only). The refresh
+    runs on the current stream, after the served graph is selected."""
+    if _all_rows(valid):
+        idx, dist = entry.graph_idx, entry.graph_dist
+    else:
+        m_idx, m_dist, _ = _stateful_build(builder, x3, y_arg, p3, spec,
+                                           entry, m_valid)
+        idx = _mix_rows(valid, entry.graph_idx, m_idx)
+        dist = _mix_rows(valid, entry.graph_dist, m_dist)
+    f_idx, f_dist, built = _stateful_build(builder, x3, y_arg, p3, spec,
+                                           entry, m_valid)
+    return idx, dist, dataclasses.replace(
+        built, graph_idx=f_idx, graph_dist=f_dist, graph_snap=stat,
+        graph_age=torch.zeros_like(entry.graph_age))
+
+
 def digc(
     x: torch.Tensor,
     y: Optional[torch.Tensor] = None,
@@ -154,6 +297,9 @@ def digc(
     pos_bias: Optional[torch.Tensor] = None,
     return_dists: bool = False,
     causal: Optional[bool] = None,
+    state=None,
+    state_key: Optional[str] = None,
+    reuse_first: bool = True,
     m_valid: Optional[torch.Tensor] = None,
     **knobs,
 ):
@@ -165,6 +311,16 @@ def digc(
     outputs match the input rank. ``y=None`` is the self-graph.
     ``m_valid`` ((M,) or (B, M) bool) marks live co-nodes and raises for
     builders without ``supports_pad``.
+
+    ``state`` / ``state_key`` (a ``core.state.DigcState`` and the key of
+    this call's entry) select the functional form: the call returns
+    ``(idx[, dist], new_state)``. A stateful builder reads its entry and
+    returns an updated one, through the reuse gate when the spec carries
+    a ``reuse`` policy and the entry cached-graph buffers;
+    ``reuse_first=False`` marks a later call of the same forward pass
+    (the ``tick`` policy reuses those without re-gating). A stateless
+    builder, or a state with no entry for the key, passes the state
+    through unchanged.
     """
     spec = resolve_spec(
         spec, impl=impl, k=k, dilation=dilation, causal=causal, **knobs
@@ -177,13 +333,22 @@ def digc(
             f"(m_valid); pad-capable impls: {_pad_capable()}"
         )
     x3, y3, p3, squeeze = promote_batch(x, y, pos_bias)
+    y_arg = None if y is None else y3
     kw = {} if m_valid is None else {"m_valid": m_valid}
-    idx, dist = builder.build(x3, None if y is None else y3, p3, spec, **kw)
+    entry = state.get(state_key) if state is not None else None
+    if entry is not None and builder.supports_state:
+        idx, dist, new_entry = _reuse_build(
+            builder, x3, y_arg, p3, spec, entry, reuse_first=reuse_first,
+            m_valid=m_valid)
+        state = state.set(state_key, new_entry)
+    else:
+        idx, dist = builder.build(x3, y_arg, p3, spec, **kw)
     if squeeze:
         idx, dist = idx[0], dist[0]
-    if return_dists:
-        return idx, dist
-    return idx
+    out = (idx, dist) if return_dists else (idx,)
+    if state is not None:
+        return (*out, state)
+    return out if return_dists else idx
 
 
 def _pad_capable() -> list[str]:
@@ -199,21 +364,32 @@ def _build_reference(x, y, pos_bias, spec: DigcSpec, m_valid=None):
 
 def _build_blocked(x, y, pos_bias, spec: DigcSpec, state_entry=None,
                    m_valid=None):
-    reuse = sorted(f for f in REUSE_KNOBS if getattr(spec, f) is not None)
-    if state_entry is not None or reuse:
-        raise NotImplementedError(
-            f"the blocked tier's functional state and stale-graph reuse "
-            f"({reuse or 'state_entry'}) are not ported yet (ROADMAP queue 1, "
-            "item 5)"
-        )
-    return digc_blocked(
+    # Exact tier: no implicit norm reuse. A caller serving a frozen
+    # gallery passes a state entry carrying sq_y; the norms are computed
+    # on the cold call (or, with per-row counters, for the rows just
+    # reset) and carried after that.
+    sq_y = None
+    new_entry = None
+    if state_entry is not None:
+        new_entry = state_entry.bump()
+        if (y is not None and state_entry.sq_y is not None
+                and tuple(state_entry.sq_y.shape) == tuple(y.shape[:-1])):
+            warm = (state_entry.row_warm[:, None]
+                    if state_entry.row_step is not None else state_entry.warm)
+            sq_y = torch.where(warm, state_entry.sq_y,
+                               y.float().square().sum(-1))
+            new_entry = state_entry.bump(sq_y=sq_y)
+    idx, dist = digc_blocked(
         x, y, k=spec.k, dilation=spec.dilation, pos_bias=pos_bias,
         causal=spec.causal, return_dists=True,
         block_m=spec.block_m if spec.block_m is not None else 256,
         block_n=spec.block_n, merge=spec.merge,
         fuse_norms=bool(spec.fuse_norms), mxu_bf16=bool(spec.mxu_bf16),
-        group_w=spec.group_w, m_valid=m_valid,
+        sq_y=sq_y, group_w=spec.group_w, m_valid=m_valid,
     )
+    if state_entry is not None:
+        return idx, dist, new_entry
+    return idx, dist
 
 
 register(GraphBuilder(
@@ -235,6 +411,7 @@ register(GraphBuilder(
     supports_pos_bias=True,
     supports_causal=True,
     supports_pad=True,
+    supports_state=True,  # frozen-gallery norms and the reuse gate
     doc="streaming engine: (block_n x block_m) tiles + a select | topk | "
         "packed merge",
 ))

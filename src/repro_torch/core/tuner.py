@@ -36,9 +36,16 @@ files (hosts mapping straight to schedule entries) migrate on load;
 schema-1 files (flat, backend-only keys) are dropped and re-measured.
 
 ``VigSchedule`` maps pyramid stages to tuned specs; ``tune_schedule``
-tunes each stage's (N, M, D, kd) workload separately. Not ported yet:
-the reuse-policy search (``tune_reuse``) and reuse overlays, which need
-the functional DIGC state (ROADMAP queue 1, item 5).
+tunes each stage's (N, M, D, kd) workload separately, and
+``VigSchedule.with_reuse`` overlays a stale-graph reuse policy on the
+stages whose tier carries state. ``tune_reuse`` picks that policy's
+drift gate by replaying a captured feature trace.
+
+Reuse knobs and the search: as in the JAX package, a ``cuda`` candidate
+keeps the spec's reuse knobs (``TileConfig.apply``), and the stateless
+``cuda`` builder rejects them, so ``tune`` raises ValueError when it
+measures a kernel candidate for a spec that carries them. Tune the
+schedule without reuse, then overlay it with ``with_reuse``.
 """
 
 from __future__ import annotations
@@ -80,10 +87,6 @@ LEGACY_TILES = ((CUDA_BLOCK_N, CUDA_CHUNK_M), (CUDA_BLOCK_N, 4 * CUDA_CHUNK_M))
 # absolute terms, since |x|^2 - 2 x.y + |y|^2 cancels (a self-distance is
 # a rounded 0).
 _MATCH_RTOL = 1e-5
-
-_REUSE_TODO = ("the reuse-policy search needs the functional DIGC state and "
-               "the stale-graph gate, not ported yet (ROADMAP queue 1, item 5)")
-
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
@@ -702,9 +705,135 @@ def scale_tau(tau: float, n_ref: int, n: int) -> float:
     return float(tau) * float(np.sqrt(n_ref / max(n, 1)))
 
 
-def tune_reuse(*args, **kwargs):
-    """The reuse-policy search (``repro.core.tuner.tune_reuse``)."""
-    raise NotImplementedError(_REUSE_TODO)
+@dataclasses.dataclass
+class ReuseTuneResult:
+    """One measured point of the reuse-policy search."""
+
+    policy: str
+    drift_tau: float
+    max_stale: int
+    reuse_frac: float  # fraction of calls served from the cached graph
+    recall: float      # neighbour recall of served vs per-call exact
+    admitted: bool     # recall >= floor
+    n: Optional[int] = None  # node count, when the trace is single-N
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _served_recall(served: np.ndarray, exact: np.ndarray) -> float:
+    k = exact.shape[-1]
+    s = served.reshape(-1, k)
+    e = exact.reshape(-1, k)
+    hits = 0
+    for i in range(e.shape[0]):
+        hits += len(set(e[i].tolist()) & set(s[i].tolist()))
+    return hits / e.size
+
+
+def tune_reuse(
+    ticks: Sequence[Sequence[tuple]],
+    *,
+    spec: DigcSpec,
+    policy: str = "tick",
+    taus: Sequence[float] = (0.02, 0.05, 0.1, 0.2),
+    max_stale: int = 4,
+    recall_floor: float = 0.95,
+) -> tuple[DigcSpec, list[ReuseTuneResult]]:
+    """Pick the widest drift gate that keeps served-graph recall above
+    ``recall_floor``, by replaying a captured feature trace through the
+    stale-graph gate.
+
+    ``ticks`` is a sequence of ``digc_capture`` lists, one per
+    consecutive ``models.vig.vig_forward`` call on the live stream, each
+    holding ``(layer_key, h, cond)`` per DIGC call. The replay mirrors
+    ``core.digc._reuse_build`` (the same statistic, strict ``<`` gate and
+    staleness bound) on the host against per-call exact graphs, so each
+    tau's served recall is measured. Among the candidates whose mean
+    recall clears the floor, the one reusing most wins; if none clears
+    it, the spec comes back unchanged. The trace is grouped per
+    (layer_key, N), and each group gated at ``scale_tau(tau, n_ref, n)``
+    with n_ref the largest N in the trace.
+    """
+    from repro_torch.core.digc import digc, drift_stat
+
+    if policy not in ("layer", "tick", "overlap"):
+        raise ValueError(f"tune_reuse: unknown policy {policy!r}")
+    base = spec.replace(reuse=None, drift_tau=None, max_stale=None)
+
+    per_key: dict[tuple, list[list[dict]]] = {}
+    with torch.inference_mode():
+        for tick in ticks:
+            seen_this_tick: set = set()
+            for layer_key, h, cond in tick:
+                x3 = h if h.ndim == 3 else h[None]
+                m = cond.shape[-2] if cond is not None else x3.shape[-2]
+                dil = max(base.dilation, 1)
+                k_eff = min(base.k, m // dil) or 1
+                if k_eff * dil > m:
+                    dil = 1
+                call_spec = base.replace(k=k_eff, dilation=dil)
+                gkey = (layer_key, int(x3.shape[-2]))
+                rows = per_key.setdefault(gkey, [])
+                if gkey not in seen_this_tick:
+                    rows.append([])
+                seen_this_tick.add(gkey)
+                rows[-1].append({
+                    "exact": digc(x3, cond, spec=call_spec).cpu().numpy(),
+                    "stat": drift_stat(x3).cpu().numpy(),
+                })
+
+    ns = sorted({n for _, n in per_key})
+    n_ref = ns[-1] if ns else 1
+    single_n = ns[0] if len(ns) == 1 else None
+    results: list[ReuseTuneResult] = []
+    for tau in sorted(set(float(t) for t in taus)):
+        recalls: list[float] = []
+        reused = 0
+        total = 0
+        for (_, n), calls_by_tick in per_key.items():
+            tau_n = scale_tau(tau, n_ref, n)
+            cached = snap = age = None
+            for calls in calls_by_tick:
+                for ci, call in enumerate(calls):
+                    stat, exact = call["stat"], call["exact"]
+                    total += stat.shape[0]
+                    if cached is None:
+                        reuse_row = np.zeros(stat.shape, bool)
+                    elif policy == "overlap" or (policy == "tick" and ci > 0):
+                        reuse_row = np.ones(stat.shape, bool)
+                    else:
+                        drift = (np.abs(stat - snap)
+                                 / np.maximum(np.abs(snap), 1e-9))
+                        reuse_row = (age < max_stale) & (drift < tau_n)
+                    reused += int(reuse_row.sum())
+                    if reuse_row.all() and policy != "overlap":
+                        served = cached
+                        age = age + (0 if policy == "tick" and ci > 0 else 1)
+                    else:
+                        sel = reuse_row.reshape(
+                            reuse_row.shape + (1,) * (exact.ndim - 1))
+                        served = (np.where(sel, cached, exact)
+                                  if cached is not None else exact)
+                        cached, snap = exact, stat
+                        age = np.where(reuse_row,
+                                       (age if age is not None else 0) + 1, 0)
+                    recalls.append(_served_recall(served, exact))
+        recall = float(np.mean(recalls)) if recalls else 1.0
+        frac = reused / total if total else 0.0
+        results.append(ReuseTuneResult(
+            policy, tau, max_stale, frac, recall,
+            bool(recall >= recall_floor), n=single_n,
+        ))
+        if policy == "overlap":
+            break  # tau does not enter the overlap gate
+
+    admitted = [r for r in results if r.admitted]
+    if not admitted:
+        return spec, results
+    best = max(admitted, key=lambda r: (r.reuse_frac, r.drift_tau))
+    return spec.replace(reuse=policy, drift_tau=best.drift_tau,
+                        max_stale=max_stale), results
 
 
 @dataclasses.dataclass(frozen=True)
@@ -726,13 +855,24 @@ class VigSchedule:
         drift_tau: Optional[float] = None,
         max_stale: Optional[int] = None,
     ) -> "VigSchedule":
-        """``policy=None`` strips the reuse knobs from every stage; a
-        policy overlay is not ported yet."""
-        if policy is not None:
-            raise NotImplementedError(_REUSE_TODO)
-        return VigSchedule(stages=tuple(
-            s.replace(reuse=None, drift_tau=None, max_stale=None)
-            for s in self.stages))
+        """Overlay a stale-graph reuse policy on every stage whose tier
+        carries state (``GraphBuilder.supports_state``). Stateless tiers
+        (the ``cuda`` kernel) keep their spec: their builder has no cache
+        to serve from, and its ``validate`` rejects the knobs.
+        ``policy=None`` strips the reuse knobs from every stage."""
+        from repro_torch.core.builder import get_builder
+
+        stages = []
+        for s in self.stages:
+            if policy is None:
+                stages.append(s.replace(reuse=None, drift_tau=None,
+                                        max_stale=None))
+            elif get_builder(s.impl).supports_state:
+                stages.append(s.replace(reuse=policy, drift_tau=drift_tau,
+                                        max_stale=max_stale))
+            else:
+                stages.append(s)
+        return VigSchedule(stages=tuple(stages))
 
     def describe(self) -> list[dict]:
         return [

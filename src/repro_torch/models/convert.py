@@ -1,5 +1,6 @@
 """ViG parameters: the spec, a seeded init, and conversion from the JAX
-package's parameter tree.
+package's parameter tree; and the DIGC state's conversion to and from
+nested numpy arrays, the form a JAX ``DigcState`` takes on the host.
 
 Parameters are a nested dict of tensors with the JAX tree's structure and
 names (``params["stage0"]["block0"]["fc_in"]``). Every dense weight is
@@ -15,6 +16,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.state import FIELDS, DigcState, DigcStateEntry
 from repro_torch.device import resolve_device
 
 
@@ -131,3 +133,34 @@ def params_to_numpy(params: Mapping) -> dict:
     return unflatten({
         path: t.detach().cpu().numpy() for path, t in flatten(params).items()
     })
+
+
+def state_from_numpy(tree: Mapping, *, device="cuda") -> DigcState:
+    """``{key: {field: array or None}}`` (a JAX ``DigcState`` as nested
+    numpy arrays: ``{k: {f: np.asarray(getattr(e, f))}}`` over its
+    entries, None where a field is None) -> the port's ``DigcState`` on
+    ``device``. Fields are those of ``DigcStateEntry``; a missing field
+    is None, an unknown one raises."""
+    dev = resolve_device(device)
+    entries = {}
+    for key, fields in tree.items():
+        unknown = set(fields) - set(FIELDS)
+        if unknown or "step" not in fields:
+            raise ValueError(
+                f"state entry {key!r}: fields {sorted(fields)} are not "
+                f"those of DigcStateEntry {FIELDS} (step required)")
+        entries[key] = DigcStateEntry(**{
+            f: None if fields.get(f) is None
+            else torch.from_numpy(np.array(fields[f])).to(dev)
+            for f in FIELDS
+        })
+    return DigcState.init(entries)
+
+
+def state_to_numpy(state: DigcState) -> dict:
+    """The port's ``DigcState`` -> ``{key: {field: np.ndarray or None}}``."""
+    return {
+        key: {f: None if getattr(e, f) is None
+              else getattr(e, f).detach().cpu().numpy() for f in FIELDS}
+        for key, e in state.entries.items()
+    }

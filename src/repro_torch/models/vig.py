@@ -10,9 +10,13 @@ pool co-nodes by the stage reduction ratio r before graph construction
 (M = N / r^2).
 
 Layouts are the JAX package's: NHWC images, (B, N, D) features, dense
-weights (in, out). Not ported yet: functional DIGC state, the eager
-cache, pad-node masks (``valid_mask``) and off-native serving grids
-(any grid but the native one raises ``VigGridError``).
+weights (in, out). Construction state crosses blocks and requests as a
+functional ``core.state.DigcState`` (``init_vig_state``; ``vig_forward(...,
+state=)`` returns ``(logits, new_state)``): blocks of a stage share one
+entry, so block l + 1 warm-starts from block l (or, under a ``reuse``
+policy, serves its graph). Not ported yet: the eager cache, pad-node
+masks (``valid_mask``) and off-native serving grids (any grid but the
+native one raises ``VigGridError``).
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.builder import DigcSpec, get_builder
+from repro_torch.core.builder import DigcSpec, get_builder, reuse_params
 from repro_torch.core.digc import digc
 from repro_torch.core.graph import mr_aggregate
+from repro_torch.core.state import DigcState, state_entry
 from repro_torch.core.tuner import VigSchedule
 from repro_torch.device import resolve_device
 from repro_torch.models.convert import flatten, init_params, unflatten, vig_param_spec  # noqa: F401
@@ -296,11 +301,17 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
                   r: int, dilation: int,
                   digc_spec: Optional[DigcSpec] = None,
                   layer_key: Optional[str] = None,
-                  digc_capture: Optional[list] = None) -> torch.Tensor:
-    """x (B, N, D) -> (B, N, D); one Grapher + FFN residual pair.
+                  state: Optional[DigcState] = None,
+                  reuse_first: bool = True,
+                  digc_capture: Optional[list] = None):
+    """x (B, N, D) -> ((B, N, D), state); one Grapher + FFN residual pair.
 
-    ``digc_capture`` (a list) collects ``(layer_key, h, cond)`` per DIGC
-    call: the nodes and co-nodes (None for a self-graph) it was given.
+    ``state`` (a ``DigcState`` keyed by ``layer_key``) is threaded
+    through DIGC and returned updated (None stays None); ``reuse_first``
+    marks the first block of a stage in a forward pass, the gate point of
+    the ``tick`` reuse policy. ``digc_capture`` (a list) collects
+    ``(layer_key, h, cond)`` per DIGC call: the nodes and co-nodes (None
+    for a self-graph) it was given.
     """
     dspec = digc_spec if digc_spec is not None else resolve_digc_spec(cfg, None)
     h = _ln(x, bp["ln_g"]["scale"])
@@ -314,7 +325,11 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     builder = get_builder(dspec.impl)
     if digc_capture is not None:
         digc_capture.append((layer_key, h, cond))
-    idx = digc(h, cond, spec=dspec)  # (B, N, k) int32
+    if state is not None:
+        idx, state = digc(h, cond, spec=dspec, state=state,
+                          state_key=layer_key, reuse_first=reuse_first)
+    else:
+        idx = digc(h, cond, spec=dspec)  # (B, N, k) int32
     aggregate = builder.aggregate if builder.aggregate is not None else mr_aggregate
     agg = aggregate(h, cond if cond is not None else h, idx)
     h = torch.cat([h, agg], dim=-1) @ bp["fc_graph"]
@@ -322,32 +337,38 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     x = x + h
     f = _ln(x, bp["ln_f"]["scale"])
     f = F.gelu(f @ bp["fc1"], approximate="tanh") @ bp["fc2"]
-    return x + f
+    return x + f, state
 
 
 def run_stage(stage_params: dict, x: torch.Tensor, cfg: VigConfig,
-              plan: StagePlan, *,
-              digc_capture: Optional[list] = None) -> torch.Tensor:
-    """Run one pipeline stage: ``plan.depth`` Grapher+FFN blocks."""
+              plan: StagePlan, *, state: Optional[DigcState] = None,
+              digc_capture: Optional[list] = None):
+    """Run one pipeline stage: ``plan.depth`` Grapher+FFN blocks sharing
+    the stage's state key. Returns ``(x, state)``."""
     for bi in range(plan.depth):
-        x = grapher_block(
+        x, state = grapher_block(
             stage_params[f"block{bi}"], x, cfg, plan.grid, plan.r,
             plan.dilations[bi], digc_spec=plan.spec, layer_key=plan.key,
-            digc_capture=digc_capture,
+            state=state, reuse_first=(bi == 0), digc_capture=digc_capture,
         )
-    return x
+    return x, state
 
 
 def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
                 digc_impl: DigcChoice = None,
-                digc_capture: Optional[list] = None) -> torch.Tensor:
-    """images (B, H, W, C) -> class logits (B, num_classes).
+                state: Optional[DigcState] = None,
+                digc_capture: Optional[list] = None):
+    """images (B, H, W, C) -> class logits (B, num_classes), or
+    ``(logits, new_state)`` when ``state`` is given.
 
     patchify -> stem + positional embedding -> per stage, Grapher blocks
     -> 2x2 downsample between stages -> mean pool -> head. Runs on the
     device of ``params`` and ``images``. ``digc_impl`` is a builder name,
-    a DigcSpec or a ``VigSchedule`` resolved per stage. ``digc_capture`` collects every
-    DIGC call's ``(layer_key, nodes, co_nodes)``.
+    a DigcSpec or a ``VigSchedule`` resolved per stage. ``state`` (see
+    ``init_vig_state``) carries construction state across blocks and
+    requests: feeding the returned state into the next call warm-starts
+    it. ``digc_capture`` collects every DIGC call's ``(layer_key, nodes,
+    co_nodes)``.
     """
     b, hh, ww, _ = images.shape
     if hh != ww:
@@ -364,11 +385,44 @@ def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
     x = patchify(images, cfg.patch) @ params["stem"]
     x = x + _pos_for_grid(params["pos"], cfg.base_grid, grid0)
     for plan in plans:
-        x = run_stage(params[plan.key], x, cfg, plan,
-                      digc_capture=digc_capture)
+        x, state = run_stage(params[plan.key], x, cfg, plan, state=state,
+                             digc_capture=digc_capture)
         if plan.index + 1 < len(cfg.depths):
             x = _downsample(x, plan.grid, params[f"down{plan.index}"])
-    return x.mean(dim=1) @ params["head"]
+    logits = x.mean(dim=1) @ params["head"]
+    if state is not None:
+        return logits, state
+    return logits
+
+
+def init_vig_state(cfg: VigConfig, batch: int,
+                   digc_impl: DigcChoice = None, *, per_slot: bool = False,
+                   grid: Optional[int] = None, device="cuda") -> DigcState:
+    """The functional DIGC state for a model and batch size, on
+    ``device``: one entry per stage (the key ``grapher_block`` passes)
+    with a cold step counter.
+
+    ``per_slot=True`` adds (batch,) per-row counters on every entry, the
+    multi-tenant serving layout: each batch row is a slot whose warm/cold
+    validity is tracked on its own. A stage whose spec carries a
+    ``reuse`` policy gets the stale-graph buffers, sized by the stage's
+    first block ``(batch, plan.n, plan.k_effs[0])``, as
+    ``grapher_block`` derives it (a later block whose clamped k differs
+    never engages the cache). ``grid`` must be the native grid until
+    off-native grids are ported.
+    """
+    if grid is not None and int(grid) != cfg.base_grid:
+        raise VigGridError(
+            f"init_vig_state: grid {grid} differs from the native grid "
+            f"{cfg.base_grid}; off-native resolutions are not ported yet")
+    rows = batch if per_slot else None
+    entries = {}
+    for plan in vig_stage_plans(cfg, digc_impl, grid=grid):
+        policy, _, _ = reuse_params(plan.spec)
+        graph = (batch, plan.n, plan.k_effs[0]) if policy is not None else None
+        entries[plan.key] = state_entry(rows=rows, graph_shape=graph,
+                                        device=device)
+    return DigcState.init(entries)
 
 
 def count_digc_work(cfg: VigConfig, *, grid: Optional[int] = None) -> list:
@@ -414,6 +468,10 @@ class Vig(nn.Module):
         return unflatten(dict(self.weights.items()))
 
     def forward(self, images: torch.Tensor, *,
-                digc_capture: Optional[list] = None) -> torch.Tensor:
+                state: Optional[DigcState] = None,
+                digc_capture: Optional[list] = None):
+        """Logits, or ``(logits, new_state)`` when ``state`` is given
+        (``init_vig_state(cfg, batch, self.digc_impl)``)."""
         return vig_forward(self.params(), images, self.cfg,
-                           digc_impl=self.digc_impl, digc_capture=digc_capture)
+                           digc_impl=self.digc_impl, state=state,
+                           digc_capture=digc_capture)

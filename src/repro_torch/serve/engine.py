@@ -5,8 +5,19 @@ Requests occupy fixed slots (``slots = max(buckets)``). Each tick gathers
 the queued requests' slots, one lane per tenant, pads the batch to the
 smallest bucket that fits and runs that bucket's program. A tenant keeps
 its slot across ticks; a new tenant takes a free slot first, else the
-least recently used idle one. Padding lanes replicate lane 0 and their
-outputs are dropped.
+least recently used idle one.
+
+DIGC state is per slot: one canonical ``DigcState`` with a row per slot
+(``init_vig_state(per_slot=True)``). A tick takes the picked lanes' rows,
+pads them (image and state row) by replicating lane 0, runs the program
+with that state and scatters only the live lanes back, so a tenant's
+warm state (the blocked tier's cached graph under a ``reuse`` policy)
+follows it across buckets and padding lanes never clobber live rows. A
+slot bound to a new tenant is cold-reset first; an LRU-evicted tenant's
+rows are parked in host memory (at most ``park_capacity`` tenants, the
+oldest copy dropped first) and restored when it returns. ``release()``
+drops a tenant and its parked copy. The ``cuda`` tier is stateless: its
+state rows pass through unchanged.
 
 Each bucket has one program, built on its first tick and counted in
 ``compile_count`` (and reported to ``on_compile``). For now a program is
@@ -21,8 +32,8 @@ the ``cuda`` kernel with both of its merges. The tuner's host-keyed JSON
 cache (``tuner_path``) makes a later engine tune nothing, and also keeps
 the bucket set that ``retune_buckets()`` derives from the served trace's
 live-lane histogram, which ``buckets="auto"`` reads back. Not ported
-yet: DIGC state and parking, guards and faults, the degradation ladder,
-SLO admission, the multi-resolution lattice, the exact-size policy
+yet: guards and faults, the degradation ladder, SLO admission and its
+parking prefetch, the multi-resolution lattice, the exact-size policy
 (``buckets=None``) and the mesh.
 """
 
@@ -34,10 +45,13 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.digc import gate_reads
+from repro_torch.core.state import DigcState
 from repro_torch.core.tuner import DigcTuner, VigSchedule, optimal_bucket_set
 from repro_torch.device import resolve_device
 from repro_torch.models.vig import (
     count_digc_work,
+    init_vig_state,
     resolve_digc_spec,
     vig_forward,
     vig_stage_plans,
@@ -71,14 +85,16 @@ class VigServeEngine:
     for ``cfg.digc_impl``. ``buckets``: a tuple, or "auto" for the bucket
     set the tuner cache holds for this serving shape (the default ladder
     capped at ``batch`` when it holds none). ``bucket_cap`` caps the
-    programs ``retune_buckets()`` may choose.
+    programs ``retune_buckets()`` may choose. ``park_capacity`` bounds the
+    evicted tenants whose state rows are parked (0: an evicted tenant
+    returns cold).
     """
 
     def __init__(self, cfg, params: dict, *, digc_impl=None, batch: int = 8,
                  autotune: bool = True, tuner_path=None,
                  buckets=DEFAULT_BUCKETS, bucket_cap: int = 4,
                  on_compile: Optional[Callable[[int], None]] = None,
-                 device="cuda"):
+                 park_capacity: int = 8, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = int(batch)
@@ -101,7 +117,8 @@ class VigServeEngine:
         self._user_schedule = isinstance(digc_impl, VigSchedule)
         self.schedule = digc_impl if self._user_schedule else None
         self.tuned = None  # per-stage TuneResults once warmed up
-        self._direct: dict[int, Callable] = {}  # direct path, by batch size
+        # direct path: batch size -> [program, DigcState]
+        self._direct: dict[int, list] = {}
         self._bucket_schedules: dict[int, VigSchedule] = {}
         self._bucket_tuned: dict[int, list] = {}
         self.params = _to_device(params, self.device)
@@ -121,7 +138,23 @@ class VigServeEngine:
         self.padded_lanes = 0
         self.lane_hist: dict[tuple, int] = {}  # (image size, live) -> ticks
         self.last_lanes: list[int] = []
+        self.last_resets: list[int] = []
+        self.last_restores: list[int] = []
         self.last_bucket: Optional[int] = None
+        # The canonical per-slot state, allocated on the first tick.
+        self._slot_state: Optional[DigcState] = None
+        # LRU parking: tenant -> its rows in host memory, oldest first.
+        self.park_capacity = int(park_capacity)
+        self._parked: dict[Any, DigcState] = {}
+        self.park_hits = 0
+        self.park_evictions = 0
+        # Stale-graph accounting, per (lane, entry), from graph_age deltas.
+        self.graph_reuses = 0
+        self.graph_rebuilds = 0
+        self._drift_sum = 0.0
+        self._drift_n = 0
+        self.last_drift: dict[str, float] = {}  # entry key -> mean drift
+        self.gate_reads = 0  # the reuse gate's device -> host reads
 
     # -- tuning ---------------------------------------------------------
 
@@ -226,8 +259,11 @@ class VigServeEngine:
         imgs = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         b = int(imgs.shape[0])
         if b not in self._direct:
-            self._direct[b] = self._forward(self._impl_choice())
-        logits = self._direct[b](imgs)
+            choice = self._impl_choice()
+            self._direct[b] = [self._forward(choice), init_vig_state(
+                self.cfg, b, choice, device=self.device)]
+        program, state = self._direct[b]
+        logits, self._direct[b][1] = program(imgs, state)
         self.requests_served += b
         return logits
 
@@ -258,18 +294,20 @@ class VigServeEngine:
         return next(b for b in self.buckets if b >= active)
 
     def _forward(self, choice) -> Callable:
-        """A prepared forward: images (B, H, W, C) -> logits through the
-        DIGC spec or schedule ``choice``."""
+        """A prepared forward: (images (B, H, W, C), state) -> (logits,
+        new state) through the DIGC spec or schedule ``choice``."""
         params, cfg = self.params, self.cfg
 
-        def program(images: torch.Tensor) -> torch.Tensor:
+        def program(images: torch.Tensor, state: DigcState):
             with torch.inference_mode():
-                return vig_forward(params, images, cfg, digc_impl=choice)
+                return vig_forward(params, images, cfg, digc_impl=choice,
+                                   state=state)
 
         return program
 
     def _build_program(self, bucket: int) -> Callable:
-        """One bucket's program: images (bucket, H, W, C) -> logits."""
+        """One bucket's program: (images (bucket, H, W, C), state) ->
+        (logits, new state)."""
         return self._forward(self._bucket_choice(bucket))
 
     def _program_for(self, bucket: int) -> Callable:
@@ -283,9 +321,64 @@ class VigServeEngine:
     def _tkey(self, req: VigRequest):
         return req.tenant if req.tenant is not None else ("req", req.uid)
 
+    def _ensure_slot_state(self) -> DigcState:
+        """The canonical per-slot state, allocated from the choice the
+        programs resolve: a user-provided schedule's per-stage specs, else
+        the engine spec (tuned schedules change no entry shape)."""
+        if self._slot_state is None:
+            choice = self.schedule if self._user_schedule else self.spec
+            self._slot_state = init_vig_state(
+                self.cfg, self.slots, choice, per_slot=True,
+                device=self.device)
+        return self._slot_state
+
+    def release(self, tenant: Any) -> None:
+        """Tenant disconnect: free its slot and cold-reset the rows, so the
+        next occupant cannot warm-start from them. Its parked copy (if
+        any) goes too: a disconnect, unlike an eviction, does not park."""
+        self._parked.pop(tenant, None)
+        slot = self._tenant_slot.pop(tenant, None)
+        if slot is None:
+            return
+        self.slot_tenant[slot] = None
+        if self._slot_state is not None:
+            self._slot_state = self._slot_state.reset_rows([slot])
+
+    def _park(self, tenant: Any, slot: int) -> None:
+        """Copy an evicted tenant's rows to host memory (pinned on a card)
+        so a later re-admit restores them warm; beyond ``park_capacity``
+        the oldest parked copy is dropped."""
+        if self.park_capacity <= 0 or self._slot_state is None:
+            return
+        host = self._slot_state.take_rows([slot]).to(
+            "cpu", pin=self.device.type == "cuda")
+        self._parked.pop(tenant, None)  # re-insert = most recent
+        self._parked[tenant] = host
+        while len(self._parked) > self.park_capacity:
+            del self._parked[next(iter(self._parked))]
+            self.park_evictions += 1
+
+    def _unpark(self, tenant: Any, slot: int) -> bool:
+        """Restore a parked tenant's rows into its new slot; False (the
+        caller cold-resets) when nothing is parked. Only row fields are
+        restored: ``step`` stays the canonical entry's."""
+        host = self._parked.pop(tenant, None)
+        if host is None:
+            return False
+        state = self._ensure_slot_state()
+        self._slot_state = DigcState(entries={
+            k: dataclasses.replace(e.put_rows(host.entries[k], [slot]),
+                                   step=e.step)
+            for k, e in state.entries.items()
+        })
+        self.park_hits += 1
+        return True
+
     def _admit(self, tenant_key, used: set) -> Optional[int]:
         """Bind a new tenant to a free slot, else the least recently used
-        slot not serving this tick; None when every slot is busy."""
+        slot not serving this tick (its tenant's rows are parked first);
+        None when every slot is busy. The slot's rows are restored from
+        the tenant's parked copy, else cold-reset."""
         free = [s for s in range(self.slots)
                 if self.slot_tenant[s] is None and s not in used]
         if free:
@@ -295,10 +388,43 @@ class VigServeEngine:
             if not idle:
                 return None
             slot = min(idle, key=lambda s: self._slot_last_tick[s])
-            del self._tenant_slot[self.slot_tenant[slot]]
+            evicted = self.slot_tenant[slot]
+            del self._tenant_slot[evicted]
+            self._park(evicted, slot)
         self.slot_tenant[slot] = tenant_key
         self._tenant_slot[tenant_key] = slot
+        if self._unpark(tenant_key, slot):
+            self.last_restores.append(slot)
+        else:
+            if self._slot_state is not None:
+                self._slot_state = self._slot_state.reset_rows([slot])
+            self.last_resets.append(slot)
         return slot
+
+    def _graph_stats_update(self, old: DigcState, new: DigcState,
+                            lanes: list) -> None:
+        """Per-lane graph reuse / rebuild counts from one tick's state
+        delta: the gate resets a row's ``graph_age`` to 0 when it rebuilt
+        and grows it otherwise. Drift is the relative change of the
+        snapshot statistic on rebuilt warm lanes (cold lanes carry the
+        zero snapshot: their first build is an admission, not drift)."""
+        rows = torch.as_tensor(lanes, dtype=torch.long)
+        for key, new_e in new.entries.items():
+            old_e = old.entries.get(key)
+            if new_e.graph_age is None or old_e is None or old_e.graph_age is None:
+                continue
+            rebuilt = new_e.graph_age.cpu()[rows] == 0
+            self.graph_rebuilds += int(rebuilt.sum())
+            self.graph_reuses += int((~rebuilt).sum())
+            old_snap = old_e.graph_snap.cpu()[rows]
+            new_snap = new_e.graph_snap.cpu()[rows]
+            warm = old_snap.abs() > 0
+            drift = ((new_snap - old_snap).abs()
+                     / old_snap.abs().clamp_min(1e-9))[warm]
+            if drift.numel():
+                self.last_drift[key] = float(drift.mean())
+                self._drift_sum += float(drift.sum())
+                self._drift_n += int(drift.numel())
 
     def step(self) -> int:
         """One tick: bind queued requests to slots, serve them padded to
@@ -306,6 +432,8 @@ class VigServeEngine:
         if not self.queue:
             return 0
         self._tick += 1
+        self.last_resets = []
+        self.last_restores = []
         used: set[int] = set()
         assigned: dict[int, int] = {}  # id(request) -> slot
         # Pass 1: tenants that own a slot reserve it, so a new tenant can
@@ -338,11 +466,22 @@ class VigServeEngine:
         bucket = self.bucket_for(a)
         self.last_lanes = list(lanes)
         self.last_bucket = bucket
+        # Padding lanes replicate lane 0, image and state row: their
+        # compute mirrors a live lane (warm whenever lane 0 is) and their
+        # outputs and state are dropped.
         imgs = [np.asarray(req.image, np.float32) for _, req in picked]
         imgs += [imgs[0]] * (bucket - a)
         batch = torch.from_numpy(np.stack(imgs)).to(self.device)
-        logits = self._program_for(bucket)(batch)
+        state = self._ensure_slot_state()
+        bucket_state = state.take_rows(lanes + [lanes[0]] * (bucket - a))
+        program = self._program_for(bucket)
+        reads = gate_reads()
+        logits, new_bucket_state = program(batch, bucket_state)
+        self.gate_reads += gate_reads() - reads
+        # Scatter the live lanes only: rows >= a (padding) are dropped.
+        self._slot_state = state.put_rows(new_bucket_state, lanes)
         logits_np = logits[:a].cpu().numpy()  # host sync closes the tick
+        self._graph_stats_update(state, self._slot_state, lanes)
         for i, (slot, req) in enumerate(picked):
             req.logits = logits_np[i]
             req.done = True
@@ -366,6 +505,19 @@ class VigServeEngine:
             self.step()
         return [r for r in pending if r.done]
 
+    # -- observability --------------------------------------------------
+
+    def state_steps(self) -> dict:
+        """The direct path's state step counters, by batch size."""
+        return {b: st.steps() for b, (_, st) in self._direct.items()}
+
+    def slot_row_steps(self) -> dict:
+        """Per-slot request counters of the canonical state (empty before
+        the first tick)."""
+        if self._slot_state is None:
+            return {}
+        return self._slot_state.row_steps()
+
     def stats(self) -> dict:
         out = {
             "requests_served": self.requests_served,
@@ -377,6 +529,19 @@ class VigServeEngine:
             "lane_hist": {f"{s}x{live}": n
                           for (s, live), n in sorted(self.lane_hist.items())},
             "slot_tenants": list(self.slot_tenant),
+            "digc_state": self.state_steps(),
+            "slot_row_steps": self.slot_row_steps(),
+            "parked_tenants": list(self._parked),
+            "park_hits": self.park_hits,
+            "park_evictions": self.park_evictions,
+            "graph_reuses": self.graph_reuses,
+            "graph_rebuilds": self.graph_rebuilds,
+            "gate_reads": self.gate_reads,
+            "drift": {
+                "mean": (self._drift_sum / self._drift_n
+                         if self._drift_n else 0.0),
+                "last": dict(self.last_drift),
+            },
         }
         if self.schedule is not None:
             out["schedule"] = self.schedule.describe()

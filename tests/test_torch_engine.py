@@ -270,13 +270,33 @@ def test_blocked_tier_pad_masks_match_jax():
 
 
 def test_blocked_tier_reuse_and_state_not_ported():
-    x = torch.zeros(1, 8, 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        digc(x, k=2, impl="blocked", reuse="layer")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        builder.get_builder("blocked").build(x, None, None,
-                                             builder.DigcSpec(k=2),
-                                             state_entry=object())
+    """Named for the stub it once pinned; the blocked tier now takes
+    ``state_entry=`` and the reuse knobs. A reuse spec without a state
+    builds exactly as JAX's; with an entry the build returns a bumped
+    copy and leaves the input entry as it was."""
+    from repro.core.state import state_entry as jstate_entry
+    from repro_torch.core.state import state_entry
+
+    x = testing.features(3, 2, 8, 4)
+    y = testing.features(4, 2, 12, 4)
+    got = digc(torch.from_numpy(x), k=2, impl="blocked", reuse="layer")
+    want = jdigc(jnp.asarray(x), k=2, impl="blocked", reuse="layer")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    blocked = builder.get_builder("blocked")
+    assert blocked.supports_state == jbuilder.get_builder("blocked").supports_state
+    entry = state_entry(sq_y_shape=(2, 12), rows=2, device="cpu")
+    idx, dist, new = blocked.build(torch.from_numpy(x), torch.from_numpy(y),
+                                   None, builder.DigcSpec(k=2),
+                                   state_entry=entry)
+    jidx, jdist, jnew = jbuilder.get_builder("blocked").build(
+        jnp.asarray(x), jnp.asarray(y), None, jbuilder.DigcSpec(k=2),
+        state_entry=jstate_entry(sq_y_shape=(2, 12), rows=2))
+    testing.assert_topk_match(idx.numpy(), dist.numpy(), np.asarray(jidx),
+                              np.asarray(jdist), rtol=RTOL, atol=ATOL)
+    assert (int(new.step), new.row_step.tolist()) == (1, [1, 1])
+    assert int(entry.step) == 0 and not entry.sq_y.any()  # input untouched
+    np.testing.assert_allclose(new.sq_y.numpy(), np.asarray(jnew.sq_y),
+                               rtol=1e-6)
 
 
 def test_registry_and_degradation_ladder_match_jax():

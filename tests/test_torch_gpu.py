@@ -227,6 +227,47 @@ def test_vig_forward_on_card_matches_cpu(cuda):
                                atol=1e-4)
 
 
+def test_stateful_engine_on_card_matches_bucket_forward_bitwise(cuda):
+    """The stateful engine on the kernel tier (chip_smoke.py phase 14 at a
+    small size): every request's logits equal, bit for bit, a stateless
+    forward of its tick's bucket batch; the state rows pass through; each
+    tick launches each kernel once a block; an evicted tenant's rows park
+    in pinned host memory."""
+    from repro_torch.models import convert, vig
+    from repro_torch.serve.engine import VigRequest, VigServeEngine
+
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"].replace(
+        image_size=64, embed_dims=(32,), depths=(3,), num_classes=5, k=4)
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=cuda)
+    eng = VigServeEngine(cfg, params, digc_impl="cuda", buckets=(1, 2, 4),
+                         device=cuda)
+    ticks = [["a", "b", "c"], ["a"], ["b", "d"], ["e", "a", "c", "b"]]
+    uid = 0
+    for tick in ticks:
+        reqs = [VigRequest(uid + i, testing.images(uid + i, 1, 64)[0], tenant=t)
+                for i, t in enumerate(tick)]
+        uid += len(tick)
+        for r in reqs:
+            eng.submit(r)
+        reset_launch_counts()
+        eng.step()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert (counts["digc_topk"], counts["mrconv"]) == (3, 3)
+        order = sorted(reqs, key=lambda r: eng._tenant_slot[r.tenant])
+        imgs = [r.image for r in order]
+        imgs += [imgs[0]] * (eng.last_bucket - len(imgs))
+        with torch.inference_mode():
+            ref = vig.vig_forward(params, _t(np.stack(imgs), cuda), cfg,
+                                  digc_impl="cuda").cpu().numpy()
+        for i, r in enumerate(order):
+            assert np.array_equal(r.logits, ref[i])
+    assert eng.slot_row_steps() == {"stage0": [0, 0, 0, 0]}
+    parked = eng._parked["d"].entries["stage0"].row_step
+    assert parked.device.type == "cpu" and parked.is_pinned()
+
+
 # The legacy merge and bucket_rounds: name -> (digc_topk keywords, block_m
 # or None for the wrapper's default). The tuner's legacy tiles
 # (``LEGACY_TILES``) and the 216-column bucket spec chip_smoke.py serves

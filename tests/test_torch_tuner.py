@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from _hypothesis_compat import HAVE_HYPOTHESIS, given, settings, st  # noqa: E402
 
+from repro.core import builder as jbuilder  # noqa: E402
 from repro.core import tuner as jtuner  # noqa: E402
 from repro_torch import testing  # noqa: E402
 from repro_torch.core import DigcSpec, digc  # noqa: E402
@@ -339,12 +340,21 @@ def test_non_blocked_specs_pass_through():
 
 
 def test_reuse_search_not_ported_yet():
+    """Named for the stub it once pinned; the reuse search is ported.
+    ``with_reuse`` overlays the stateful stages and strips with None, as
+    JAX's does; an empty trace admits the first candidate at recall 1,
+    as JAX's replay does."""
     sched = VigSchedule(stages=(DigcSpec(impl="blocked", k=3),))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sched.with_reuse("tick", drift_tau=0.1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tune_reuse([], spec=DigcSpec(k=3))
-    assert sched.with_reuse(None) == sched
+    jsched = jtuner.VigSchedule(stages=(jbuilder.DigcSpec(impl="blocked", k=3),))
+    out = sched.with_reuse("tick", drift_tau=0.1)
+    jout = jsched.with_reuse("tick", drift_tau=0.1)
+    assert out.describe() == jout.describe()
+    assert out.stages[0].drift_tau == jout.stages[0].drift_tau == 0.1
+    assert out.with_reuse(None) == sched
+    tuned, results = tune_reuse([], spec=DigcSpec(k=3))
+    jtuned, jresults = jtuner.tune_reuse([], spec=jbuilder.DigcSpec(k=3))
+    assert [r.as_dict() for r in results] == [r.as_dict() for r in jresults]
+    assert (tuned.reuse, tuned.drift_tau) == (jtuned.reuse, jtuned.drift_tau)
     with pytest.raises(ValueError, match="empty"):
         VigSchedule(stages=()).spec_for(0)
 

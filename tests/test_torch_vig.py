@@ -135,8 +135,10 @@ def test_grapher_block_clamps_k_and_dilation_at_tiny_m(dilation):
     params = convert.params_from_numpy(cfg, tree, device="cpu")
     x = testing.features(5, 2, 4, 8)
     bp = params["stage0"]["block0"]
-    out = vig.grapher_block(bp, torch.from_numpy(x), cfg, 2, 1, dilation,
-                            digc_spec=vig.resolve_digc_spec(cfg, "cuda"))
+    out, state = vig.grapher_block(bp, torch.from_numpy(x), cfg, 2, 1,
+                                   dilation,
+                                   digc_spec=vig.resolve_digc_spec(cfg, "cuda"))
+    assert state is None
     ref, _ = jvig.grapher_block(tree["stage0"]["block0"], jnp.asarray(x), jcfg,
                                 2, 1, dilation,
                                 digc_spec=jvig.resolve_digc_spec(jcfg, "reference"))
