@@ -13,8 +13,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    ramp: DIGC indices equal except at near-ties, MRConv bit for bit;
 4. serve ``vig_ti_iso`` at full width (224^2, D = 192, 12 blocks, 1000
    classes, seeded init) through ``VigServeEngine(digc_impl="cuda")`` on
-   a ragged multi-tenant trace that uses buckets 1, 2, 4 and 8; check the
-   launch counts and each layer's kernel output on the captured features;
+   a ragged multi-tenant trace that uses buckets 1, 2, 4 and 8, each
+   bucket's program captured as a CUDA graph on its first tick; check the
+   launch counts, every request's logits bit for bit those of an eager
+   forward of its bucket batch, and each layer's kernel output on the
+   recorded features;
 5. one batched ``vig_ti_pyr`` forward at 224^2 with the same checks,
    then both models, narrowed, against the reference tier end to end;
    the B = 8 forward's time (CUDA events, after a warm-up) and the DIGC
@@ -75,12 +78,34 @@ Phases, each printed as it runs; any failure exits non-zero:
     cycling through 4 slots (``park_capacity=8``) on the phase-15 spec:
     parked tenants come back (``park_hits > 0``) and their next tick
     serves their cached graph (``graph_age > 0``);
-    ``release()`` drops a parked copy and resets a bound slot.
+    ``release()`` drops a parked copy and resets a bound slot;
+17. faults on the card (``core.faults.FaultPlan``), full-width
+    ``vig_ti_iso``, bucket 4, three tenants: on the ``cuda`` tier a
+    non-finite image is quarantined while the co-batched lanes stay bit
+    for bit the fault-free replay, a ``row_step`` bitflip is detected and
+    served cold, a persistent ``program.build`` failure walks the ladder
+    to ``blocked`` (logits equal a blocked forward of each bucket batch)
+    and slow ticks over ``deadline_ms`` degrade after
+    ``deadline_strikes`` misses; on ``blocked`` with ``reuse="tick"`` a
+    NaN in ``graph_snap`` is quarantined and a lost parked copy
+    re-admits cold. Prints each engine's fault counters and the guarded
+    against the unguarded bucket-8 tick, in turns;
+18. captured against eager (``EagerEngine``: the same engine with its
+    programs run eagerly): the phase-4 trace's logits bit for bit and
+    the launch counts equal, requests/s and the median tick by bucket in
+    turns, a profiled bucket-8 tick of each (device busy share, host
+    launch calls, device kernels; the DIGC and MRConv kernels the device
+    ran equal the launch counters' rise, which a replay takes from its
+    capture's tally of 12 / 12); then phase 15's trace per policy,
+    captured bit for bit the eager engine with no gate read on a captured
+    tick, and the median tick of each.
 
 Each path of phases 4, 5, 8, 10, 12 and 14 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
-tier, which must launch none). The line before the last is the kernel summary
+tier, which must launch none). A replayed graph adds the launches its
+capture recorded. Every engine outside phase 17 must end with
+``fallback_level`` 0 and no logged fault. The line before the last is the kernel summary
 as JSON (one entry per kernel and DIGC variant); the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result.
@@ -108,6 +133,8 @@ from repro_torch.core.tuner import LEGACY_TILES, time_calls  # noqa: E402
 from repro_torch.core.digc import drift_stat  # noqa: E402
 from repro_torch.core.knn_attention import knn_attention_mha  # noqa: E402
 from repro_torch.core.tuner import tune_reuse  # noqa: E402
+from repro_torch.core.builder import degraded_spec  # noqa: E402
+from repro_torch.core.faults import FaultPlan  # noqa: E402
 from repro_torch.core.packedkey import idx_bits_for  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ops, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.digc_topk import BIG, digc_topk_cuda, digc_topk_plain  # noqa: E402
@@ -158,6 +185,14 @@ KNN = dict(heads=4, seq=2048, dh=32, nn=32)
 # Scale of the positional bias (grid coordinates in [0, 1]): distances at
 # the iso shape are a few hundred, so the bias reorders neighbours.
 POS_SCALE = 100.0
+
+
+class EagerEngine(VigServeEngine):
+    """The engine with its bucket programs run eagerly on the card, as on
+    the CPU: what the captured programs are held against."""
+
+    def _captures(self) -> bool:
+        return False
 
 
 def phase(title: str) -> None:
@@ -360,19 +395,50 @@ def trace_ticks() -> list:
     return ticks
 
 
-def serve_trace(eng, images) -> tuple[list, dict, float]:
+def serve_trace(eng, images, batches=None) -> tuple[list, dict, float]:
+    """The phase-4 trace through ``eng``: its requests, host-clock ms per
+    tick by bucket and the seconds it took. ``batches`` (a list) collects
+    each tick's requests in slot order and its bucket."""
     lat: dict[int, list] = {}
     reqs = []
     t0 = time.perf_counter()
     for tick in trace_ticks():
-        for uid, tenant in tick:
-            req = VigRequest(uid, images[uid], tenant=tenant)
+        tick_reqs = [VigRequest(uid, images[uid], tenant=tenant)
+                     for uid, tenant in tick]
+        for req in tick_reqs:
             eng.submit(req)
-            reqs.append(req)
+        reqs += tick_reqs
         s = time.perf_counter()
         eng.step()  # returns after the logits reach the host
         lat.setdefault(eng.last_bucket, []).append((time.perf_counter() - s) * 1e3)
+        if batches is not None:
+            batches.append(bucket_batch(eng, tick_reqs))
     return reqs, lat, time.perf_counter() - t0
+
+
+def assert_no_faults(eng, what: str) -> None:
+    """Outside phase 17 no path may descend the degradation ladder or log
+    a fault: the ladder must never hide a broken kernel."""
+    if eng.fallback_level or eng.fault_log:
+        raise AssertionError(
+            f"{what}: fallback_level {eng.fallback_level}, faults "
+            f"{[f.as_dict() for f in eng.fault_log]}")
+
+
+def check_bucket_forwards(params, cfg, digc_impl, batches) -> None:
+    """Every served request's logits bit for bit those of an eager
+    stateless ``vig_forward`` of its tick's bucket batch: the captured
+    programs (and the stateful engine around them) change no bit."""
+    with torch.inference_mode():
+        for order, bucket in batches:
+            ref = vig.vig_forward(params, to_dev(stack_batch(order, bucket)),
+                                  cfg, digc_impl=digc_impl).cpu().numpy()
+            for i, r in enumerate(order):
+                if not np.array_equal(r.logits, ref[i]):
+                    raise AssertionError(
+                        f"request {r.uid}: logits differ from the eager "
+                        f"forward of its bucket batch by "
+                        f"{float(np.abs(r.logits - ref[i]).max())}")
 
 
 def serve_iso(title: str, digc_impl, variant: dict):
@@ -391,12 +457,15 @@ def serve_iso(title: str, digc_impl, variant: dict):
     serve_trace(eng, images)  # warm-up pass: first use of each bucket
     ticks = len(trace_ticks())
     reset_launch_counts()
-    reqs, lat, seconds = serve_trace(eng, images)
+    batches: list = []
+    reqs, lat, seconds = serve_trace(eng, images, batches)
     counts = launch_counts()
     stats = eng.stats()
     print(f"stats: {json.dumps(stats)}")
-    if stats["compile_count"] > 4:
-        raise AssertionError(f"{stats['compile_count']} programs for 4 buckets")
+    assert_no_faults(eng, title)
+    if stats["compile_count"] != 4 or sorted(eng._captured) != [1, 2, 4, 8]:
+        raise AssertionError(f"{stats['compile_count']} captured programs "
+                             f"for 4 buckets: {sorted(eng._captured)}")
     if sorted(stats["bucket_ticks"]) != [1, 2, 4, 8]:
         raise AssertionError(f"buckets used: {stats['bucket_ticks']}")
     want = 12 * ticks
@@ -416,6 +485,9 @@ def serve_iso(title: str, digc_impl, variant: dict):
     for b in sorted(lat):
         print(f"bucket {b}: median tick {statistics.median(lat[b]):.2f} ms "
               f"over {len(lat[b])} ticks")
+    check_bucket_forwards(params, cfg, digc_impl, batches)
+    print(f"captured programs: every request's logits bit for bit those of "
+          f"an eager forward of its bucket batch ({len(batches)} ticks)")
     # Per-layer kernel checks and the logits against the plain reference
     # tier, on the first tick's eight images.
     batch = torch.from_numpy(np.stack(images[:8])).to(DEV)
@@ -436,16 +508,23 @@ def serving() -> tuple[dict, dict, float]:
     return counts, {k: v / served for k, v in counts.items()}, rps
 
 
-def profile_tick(eng, images) -> None:
-    """One bucket-8 tick of eight new tenants under torch.profiler: the
-    device's busy share of the tick and the operators that take the
-    device's and the host's time."""
+def profile_tick(eng, images, tag: str = "p") -> dict:
+    """One bucket-8 tick of eight new tenants (``tag`` + 0..7) under
+    torch.profiler: the device's busy share of the tick, the host's
+    launch calls (runtime API calls named ``cuda*Launch*``: kernels, and
+    a captured program's one graph launch), the kernels the device ran,
+    and the operators that take the device's and the host's time.
+
+    Returns, beside the times, the launch counters' rise over the tick
+    (``counted``: a replay's comes from its capture's tally) and the DIGC
+    and MRConv kernels the profiler saw the device run (``on_device``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for uid in range(8):
-            eng.submit(VigRequest(100 + uid, images[uid], tenant=f"p{uid}"))
+            eng.submit(VigRequest(100 + uid, images[uid], tenant=f"{tag}{uid}"))
         eng.step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -455,15 +534,29 @@ def profile_tick(eng, images) -> None:
 
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    calls = {e.key: e.count for e in events
+             if not str(e.device_type).endswith("CUDA")
+             and e.key.startswith("cuda") and "Launch" in e.key}
+    ran = sum(e.count for e in kernels)
+    after = launch_counts()
+    counted = {k: after[k] - before[k] for k in ("digc_topk", "mrconv")}
+    on_device = {k: sum(e.count for e in kernels if f"{k}_kernel" in e.key)
+                 for k in counted}
     print(f"profiled tick (bucket {eng.last_bucket}): {wall_ms:.2f} ms on the "
           f"host clock under the profiler, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%)")
+          f"({100 * busy_ms / wall_ms:.1f}%); host launch calls "
+          f"{sum(calls.values())} {calls}; device kernels {ran}; DIGC and "
+          f"MRConv counted {counted}, on the device {on_device}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         print(f"  device {dev_us(e) / 1e3:8.3f} ms x{e.count:<4d} {e.key[:70]}")
     cpu = [e for e in events if not str(e.device_type).endswith("CUDA")]
     for e in sorted(cpu, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"  host   {e.self_cpu_time_total / 1e3:8.3f} ms x{e.count:<4d} "
               f"{e.key[:70]}")
+    assert_no_faults(eng, "profiled tick")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                host_launches=sum(calls.values()), kernels=ran,
+                counted=counted, on_device=on_device)
 
 
 def check_logits(out, ref, served=None) -> None:
@@ -675,9 +768,19 @@ def timings(per_request: dict) -> dict:
                                        largest=False)))
         variants = {**PACKED_BF16, "pos_bias": dict(pos_bias=stage_pos_bias(n, m)),
                     **timed_legacy(m, kd)}
+        xb, yb = x.bfloat16().float(), y.bfloat16().float()
+
+        def exact():
+            return torch.topk(torch.cdist(x, y), kd, dim=-1, largest=False)
+
+        def rounded():
+            return torch.topk(torch.cdist(xb, yb), kd, dim=-1, largest=False)
+
         library = {
-            "legacy": lambda: torch.topk(torch.cdist(x, y), kd, dim=-1,
-                                         largest=False),
+            # packed keys: the same top-k up to ties; bf16: the distances
+            # of the bf16-rounded operands (rounded before timing)
+            "packed": exact, "legacy": exact, "legacy+packed": exact,
+            "mxu_bf16": rounded, "packed+mxu_bf16": rounded,
             # squared distances, so the bias adds as the kernel adds it
             "pos_bias": lambda: torch.topk(
                 torch.cdist(x, y).square_().add_(variants["pos_bias"]["pos_bias"]),
@@ -719,6 +822,16 @@ def timings(per_request: dict) -> dict:
                                    bound_ms=bms, bound_by=by))
     labels = {"digc_topk": "torch.cdist + torch.topk (two calls)",
               "digc_topk.legacy": "torch.cdist + torch.topk (two calls)",
+              "digc_topk.packed": "torch.cdist + torch.topk (two calls; the "
+                                  "same top-k up to ties)",
+              "digc_topk.legacy+packed": "torch.cdist + torch.topk (two "
+                                         "calls; the same top-k up to ties)",
+              "digc_topk.mxu_bf16": "torch.cdist on bf16-rounded operands + "
+                                    "torch.topk (two calls)",
+              "digc_topk.packed+mxu_bf16": "torch.cdist on bf16-rounded "
+                                           "operands + torch.topk (two calls)",
+              "digc_topk.bucket_rounds": "none (approximate: no PyTorch call "
+                                         "computes it)",
               "digc_topk.pos_bias": "torch.cdist, square, + bias, torch.topk "
                                     "(four calls)",
               "digc_topk.causal": "torch.cdist, causal mask, torch.topk "
@@ -1001,6 +1114,9 @@ def tuned_serving(rps_exact: float) -> tuple[dict, dict, dict]:
             raise AssertionError(f"second engine launches {second}")
         print(f"second engine on the cache: nothing tuned, launches "
               f"{fired(second)}")
+        for name, e in (("tuned", eng), ("cuda spec", spec_eng),
+                        ("second tuned", eng2)):
+            assert_no_faults(e, f"phase 12, {name} engine")
         new = eng2.retune_buckets()
         auto = VigServeEngine(cfg, params, tuner_path=path, buckets="auto",
                               device=DEV)
@@ -1020,6 +1136,7 @@ def tuned_serving(rps_exact: float) -> tuple[dict, dict, dict]:
               "digc_topk.legacy": want, "digc_topk.bucket_rounds": want}
     if fired(bucket_counts) != expect:
         raise AssertionError(f"launches {bucket_counts}, expected {expect}")
+    assert_no_faults(beng, "phase 12, bucket_rounds engine")
     blogits = np.stack([r.logits for r in breqs])
     if not np.isfinite(blogits).all():
         raise AssertionError("bucket_rounds serving: logits not finite")
@@ -1158,30 +1275,15 @@ def stateful_serving(phase4_counts: dict, rps_phase4: float) -> None:
     eng = VigServeEngine(cfg, params, digc_impl="cuda", device=DEV)
     serve_trace(eng, images)  # warm-up pass
     reset_launch_counts()
-    batches = []
-    uid_reqs = []
-    for tick in trace_ticks():
-        reqs = [VigRequest(uid, images[uid], tenant=t) for uid, t in tick]
-        for r in reqs:
-            eng.submit(r)
-        eng.step()
-        batches.append(bucket_batch(eng, reqs))
-        uid_reqs += reqs
+    batches: list = []
+    uid_reqs, _, _ = serve_trace(eng, images, batches)
     torch.cuda.synchronize()
     counts = launch_counts()
     if fired(counts) != fired(phase4_counts):
         raise AssertionError(f"launches {fired(counts)}, phase 4 "
                              f"{fired(phase4_counts)}")
-    with torch.inference_mode():
-        for order, bucket in batches:
-            ref = vig.vig_forward(params, to_dev(stack_batch(order, bucket)),
-                                  cfg, digc_impl="cuda").cpu().numpy()
-            for i, r in enumerate(order):
-                if not np.array_equal(r.logits, ref[i]):
-                    raise AssertionError(
-                        f"request {r.uid}: logits differ from the stateless "
-                        f"forward of its bucket batch by "
-                        f"{float(np.abs(r.logits - ref[i]).max())}")
+    check_bucket_forwards(params, cfg, "cuda", batches)
+    assert_no_faults(eng, "phase 14")
     steps = eng.slot_row_steps()
     if any(any(v) for v in steps.values()) or eng.stats()["gate_reads"]:
         raise AssertionError(f"the stateless tier moved the state: {steps}")
@@ -1261,7 +1363,8 @@ def serve_video(eng, frames: dict, log=None) -> dict:
     host-clock ms, and whether the new-image tenant's graph snapshot
     moved (it rebuilt) on every tick. With ``log`` (a recording digc),
     the served-vs-fresh neighbour hits of the live rows."""
-    out = {"reqs": [], "ms": [], "rebuilt": [], "hits": 0, "total": 0}
+    out = {"reqs": [], "ms": [], "rebuilt": [], "reads": [], "hits": 0,
+           "total": 0}
     for t in range(VIDEO_FRAMES):
         reqs = [VigRequest(100 * t + i, seq[t], tenant=name)
                 for i, (name, seq) in enumerate(frames.items())]
@@ -1279,9 +1382,11 @@ def serve_video(eng, frames: dict, log=None) -> dict:
         before = new_snap()
         if log is not None:
             log.clear()
+        reads = eng.gate_reads
         s = time.perf_counter()
         eng.step()
         out["ms"].append((time.perf_counter() - s) * 1e3)
+        out["reads"].append(eng.gate_reads - reads)
         out["reqs"].append(reqs)
         out["rebuilt"].append(before is None or new_snap() != before)
         a = len(eng.last_lanes)
@@ -1317,9 +1422,9 @@ def stale_graph_serving() -> DigcSpec:
     frames = video_frames(cfg.image_size)
     off = DigcSpec(impl="blocked", k=cfg.k)
 
-    def engine(spec):
-        return VigServeEngine(cfg, params, digc_impl=spec, autotune=False,
-                              buckets=(1, 2, 4, 8, 16), device=DEV)
+    def engine(spec, cls=VigServeEngine):
+        return cls(cfg, params, digc_impl=spec, autotune=False,
+                   buckets=(1, 2, 4, 8, 16), device=DEV)
 
     reset_launch_counts()
     base = serve_video(engine(off), frames)
@@ -1331,6 +1436,7 @@ def stale_graph_serving() -> DigcSpec:
             if not np.array_equal(r.logits, z.logits):
                 raise AssertionError(f"drift_tau=0 request {z.uid}: logits "
                                      "differ from reuse=None")
+    assert_no_faults(zero_eng, "phase 15, drift_tau=0")
     if zero_eng.stats()["gate_reads"] or zero_eng.stats()["graph_reuses"]:
         raise AssertionError("drift_tau=0 engaged the gate")
     print(f"reuse='tick', drift_tau=0.0: {sum(map(len, zero['reqs']))} "
@@ -1380,6 +1486,8 @@ def stale_graph_serving() -> DigcSpec:
         raise AssertionError(f"the blocked tier launched {fired(counts)}")
     print(f"reuse=None: median tick {statistics.median(ms['off']):.2f} ms "
           f"over {len(ms['off'])} ticks (9 live lanes, bucket 16)")
+    for name, (eng, _) in runs.items():
+        assert_no_faults(eng, f"phase 15, {name}")
     for p in policies:
         eng, res = runs[p]
         st = eng.stats()
@@ -1387,8 +1495,8 @@ def stale_graph_serving() -> DigcSpec:
         log: list = []
         real, record = recording_digc(log)
         vig.digc = record
-        try:
-            rec = serve_video(engine(specs[p]), frames, log)
+        try:  # eagerly: a replayed graph calls no Python to record
+            rec = serve_video(engine(specs[p], EagerEngine), frames, log)
         finally:
             vig.digc = real
         if not all(res["rebuilt"]) or not all(rec["rebuilt"]):
@@ -1405,7 +1513,7 @@ def stale_graph_serving() -> DigcSpec:
               f"tick {statistics.median(ms[p]):.2f} ms (reuse=None "
               f"{statistics.median(ms['off']):.2f}); drift mean "
               f"{st['drift']['mean']:.3g}; new-image tenant rebuilt every tick")
-    return specs["tick"]
+    return specs
 
 
 def parking(spec: DigcSpec) -> None:
@@ -1435,6 +1543,7 @@ def parking(spec: DigcSpec) -> None:
             warm_returns += 1
     if fired(launch_counts()):
         raise AssertionError(f"the blocked tier launched {fired(launch_counts())}")
+    assert_no_faults(eng, "phase 16")
     st = eng.stats()
     if st["park_hits"] <= 0 or warm_returns != st["park_hits"]:
         raise AssertionError(f"park_hits {st['park_hits']}, warm returns "
@@ -1457,6 +1566,268 @@ def parking(spec: DigcSpec) -> None:
           f"freed slot {slot} and reset its rows")
 
 
+FAULT_COUNTERS = ("quarantines", "state_resets", "deadline_misses",
+                  "park_losses", "retries", "requests_failed",
+                  "fallback_level")
+
+
+def fault_counters(eng) -> dict:
+    st = eng.stats()
+    out = {k: st[k] for k in FAULT_COUNTERS}
+    out["faults"] = [f["kind"] for f in st["faults"]]
+    return out
+
+
+def faults_on_card(reuse_spec: DigcSpec) -> None:
+    phase("17. faults on the card: vig_ti_iso at full width, bucket 4")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    frames = video_frames(cfg.image_size)
+    names = ["v0", "v1", "v2"]  # bound to slots 0, 1, 2
+
+    def engine(plan=None, spec="cuda", buckets=(4,), **kw):
+        return VigServeEngine(cfg, params, digc_impl=spec, autotune=False,
+                              buckets=buckets, fault_plan=plan, device=DEV,
+                              **kw)
+
+    def run(eng, ticks=4) -> dict:
+        """Frame t of v0-v2 at tick t + 1; the requests by (t, tenant)."""
+        reqs = {}
+        for t in range(ticks):
+            for i, n in enumerate(names):
+                reqs[(t, n)] = r = VigRequest(100 * t + i, frames[n][t],
+                                              tenant=n)
+                eng.submit(r)
+            eng.step()
+        return reqs
+
+    def same(reqs, ref, skip=()) -> None:
+        for key, r in reqs.items():
+            if key not in skip and not np.array_equal(r.logits, ref[key].logits):
+                raise AssertionError(f"{key}: logits differ from the "
+                                     "fault-free replay")
+
+    clean_eng = engine()
+    clean = run(clean_eng)
+    assert_no_faults(clean_eng, "phase 17 fault-free replay")
+    # A non-finite image: its lane is quarantined, the others are served
+    # bit for bit (the kernel tier is stateless, so every later tick too).
+    plan = FaultPlan(seed=1).inject_nonfinite_input("v1", tick=2)
+    eng = engine(plan)
+    reqs = run(eng)
+    bad = reqs[(1, "v1")]
+    if bad.fault is None or bad.fault.kind != "nonfinite_input" or bad.logits is not None:
+        raise AssertionError(f"non-finite image not quarantined: {bad.fault}")
+    same(reqs, clean, skip={(1, "v1")})
+    print(f"cuda, non-finite image of v1 at tick 2: quarantined; the other "
+          f"{len(reqs) - 1} requests bit for bit the fault-free replay; "
+          f"{fault_counters(eng)}")
+    # A row_step bitflip (the kernel tier's only state field): the tokens
+    # catch it and the lane is served cold.
+    plan = FaultPlan(seed=2).inject_state_corruption(
+        field="row_step", row=1, tick=2, mode="bitflip")
+    eng = engine(plan)
+    reqs = run(eng)
+    got = fault_counters(eng)
+    if (plan.counts() != {"state_corruption": 1} or got["state_resets"] != 1
+            or got["quarantines"] or got["faults"] != ["state_corruption"]):
+        raise AssertionError(f"row_step bitflip: {plan.fired}, {got}")
+    same(reqs, clean)
+    print(f"cuda, {plan.fired[0].detail}: detected and served cold, every "
+          f"request bit for bit the fault-free replay; {got}")
+    # Every cuda build fails: the ladder serves on the blocked tier.
+    plan = FaultPlan(seed=3).inject_build_failure(impl="cuda", times=None)
+    eng = engine(plan)
+    reqs = run(eng)
+    st = eng.stats()
+    if st["fallback_level"] != 1 or st.get("fallback_impl") != "blocked":
+        raise AssertionError(f"build failure: {fault_counters(eng)}")
+    blocked = degraded_spec(eng.spec, "blocked")
+    gap = 0.0
+    with torch.inference_mode():
+        for t in range(4):
+            batch = np.stack([frames[n][t] for n in names] + [frames["v0"][t]])
+            want = vig.vig_forward(params, to_dev(batch), cfg,
+                                   digc_impl=blocked).cpu().numpy()
+            scale = max(1.0, float(np.abs(want).max()))
+            for i, n in enumerate(names):
+                got = reqs[(t, n)].logits
+                if not np.allclose(got, want[i], rtol=0, atol=1e-5 * scale):
+                    raise AssertionError(f"{(t, n)}: degraded logits differ "
+                                         "from a blocked forward")
+                gap = max(gap, float(np.abs(got - clean[(t, n)].logits).max()))
+    print(f"cuda, persistent build failure: fallback_level 1 "
+          f"({st['fallback_impl']}); logits equal a blocked forward of each "
+          f"bucket batch (atol 1e-5 x the largest logit); max |diff| to the "
+          f"cuda tier {gap:.3g}; {fault_counters(eng)}")
+    # Slow ticks over the budget degrade after deadline_strikes misses.
+    plan = FaultPlan(seed=4).inject_slow_tick(seconds=0.2, times=3)
+    eng = engine(plan, deadline_ms=100.0, deadline_strikes=2)
+    run(eng, ticks=3)
+    got = fault_counters(eng)
+    if (got["deadline_misses"], got["fallback_level"], got["faults"]) != (
+            2, 1, ["deadline_miss", "deadline_miss", "deadline_degrade"]):
+        raise AssertionError(f"deadline: {got}")
+    print(f"cuda, 3 ticks slowed 0.2 s over a 100 ms budget: the first (the "
+          f"capture's tick) skipped, 2 misses, degraded; {got}")
+    # The blocked tier with reuse: a NaN in the cached graph's snapshot
+    # quarantines its lane; co-batched lanes are bit for bit fault-free.
+    clean_reuse = run(engine(spec=reuse_spec))
+    plan = FaultPlan(seed=5).inject_state_corruption(
+        field="graph_snap", row=1, tick=2, mode="nan")
+    eng = engine(plan, spec=reuse_spec)
+    reqs = run(eng)
+    bad = reqs[(1, "v1")]
+    if bad.fault is None or bad.fault.kind != "nonfinite_state":
+        raise AssertionError(f"graph_snap NaN not quarantined: {bad.fault}")
+    same(reqs, clean_reuse, skip={(t, "v1") for t in range(1, 4)})
+    print(f"blocked tick reuse, {plan.fired[0].detail}: quarantined; v0 and "
+          f"v2 bit for bit the fault-free replay; {fault_counters(eng)}")
+    # A parking loss: v0 is evicted (parked), its copy is lost, and it
+    # returns cold (one tick's 12 gated calls on its row counter).
+    plan = FaultPlan(seed=6).inject_parking_loss("v0")
+    eng = engine(plan, spec=reuse_spec, buckets=(2,))
+    for t, tick in enumerate((["v0", "v1"], ["v2"], ["v0"])):
+        for i, n in enumerate(tick):
+            eng.submit(VigRequest(10 * t + i, frames[n][t], tenant=n))
+        eng.step()
+    slot = eng._tenant_slot["v0"]
+    steps = eng.slot_row_steps()["stage0"][slot]
+    got = fault_counters(eng)
+    if (got["park_losses"] != 1 or slot not in eng.last_resets or steps != 12
+            or eng.stats()["park_hits"]):
+        raise AssertionError(f"parking loss: {got}, row_step {steps}")
+    print(f"blocked tick reuse, parking loss of v0: re-admitted cold "
+          f"(row_step {steps}); {got}")
+    # What the guards cost: bucket-8 ticks of eight tenants, guarded and
+    # unguarded engines in turns, after each engine's first (capturing)
+    # tick.
+    tenants = [f"v{i}" for i in range(8)]
+    engines = {"guarded": engine(buckets=(8,)),
+               "unguarded": engine(buckets=(8,), guards=False)}
+    ms: dict = {k: [] for k in engines}
+
+    def tick(name, t):
+        eng = engines[name]
+        for i, n in enumerate(tenants):
+            eng.submit(VigRequest(100 * t + i, frames[n][t % VIDEO_FRAMES],
+                                  tenant=n))
+        s = time.perf_counter()
+        eng.step()
+        return (time.perf_counter() - s) * 1e3
+
+    for name in engines:
+        tick(name, 0)
+    for r in range(4):
+        for name in ("guarded", "unguarded", "unguarded", "guarded"):
+            ms[name] += [tick(name, 1 + 4 * r + j) for j in range(4)]
+    for name, eng in engines.items():
+        assert_no_faults(eng, f"phase 17, {name} timing engine")
+    g, u = statistics.median(ms["guarded"]), statistics.median(ms["unguarded"])
+    print(f"bucket-8 tick, median over {len(ms['guarded'])} ticks each, in "
+          f"turns: guarded {g:.3f} ms, unguarded {u:.3f} ms (guards "
+          f"{g - u:+.3f} ms, {100 * (g / u - 1):+.1f}%)")
+
+
+def captured_vs_eager(specs: dict) -> None:
+    phase("18. captured bucket programs against the eager engine")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    images = [testing.images(uid, 1, cfg.image_size)[0] for uid in range(20)]
+    engines = {"captured": VigServeEngine(cfg, params, digc_impl="cuda",
+                                          device=DEV),
+               "eager": EagerEngine(cfg, params, digc_impl="cuda", device=DEV)}
+    counts, lat, rps, logits = {}, {}, {}, {}
+    for name, eng in engines.items():
+        serve_trace(eng, images)  # first use of each bucket (captures)
+        reset_launch_counts()
+        reqs, _, _ = serve_trace(eng, images)
+        counts[name] = fired(launch_counts())
+        logits[name] = np.stack([r.logits for r in reqs])
+        lat[name] = {}
+        rps[name] = []
+    if not np.array_equal(logits["captured"], logits["eager"]):
+        raise AssertionError("captured logits differ from the eager engine's")
+    if counts["captured"] != counts["eager"] or counts["captured"]["digc_topk"] != 72:
+        raise AssertionError(f"launches {counts}")
+    print(f"phase-4 trace: captured logits bit for bit the eager engine's; "
+          f"launches captured {counts['captured']}, eager {counts['eager']}")
+    for _ in range(3):
+        for name in ("captured", "eager", "eager", "captured"):
+            _, ticks, sec = serve_trace(engines[name], images)
+            rps[name].append(20 / sec)
+            for b, v in ticks.items():
+                lat[name].setdefault(b, []).extend(v)
+    for name in engines:
+        print(f"{name}: requests/s {', '.join(f'{v:.2f}' for v in rps[name])} "
+              f"(median {statistics.median(rps[name]):.2f}); median tick by "
+              f"bucket: " + ", ".join(
+                  f"{b}: {statistics.median(v):.3f} ms ({len(v)} ticks)"
+                  for b, v in sorted(lat[name].items())))
+    # Profiled bucket-8 ticks in turns: eight new tenants (admission
+    # evicts, parks and resets eight slots), then the same eight again.
+    # A replay's launch counts are its capture's tally: each profiled
+    # replay must show the device running as many DIGC and MRConv kernels.
+    # The profiler can lose a tick's kernel records (an eager tick once
+    # showed 11 of its 12 counted launches of each), so a replay it saw
+    # short is profiled again, at most twice, and each shortfall printed.
+    want = {"digc_topk": 12, "mrconv": 12}
+    tally = engines["captured"]._captured[8].tally
+    if fired(tally) != want:
+        raise AssertionError(f"bucket-8 capture tally {tally}")
+    for i, name in enumerate(("captured", "eager", "eager", "captured")):
+        for kind in ("eight new tenants", "the same eight again"):
+            print(f"{name}, {kind}:")
+            got = profile_tick(engines[name], images, tag=f"q{i}_")
+            for _ in range(2):
+                if name == "eager" or got["on_device"] == want:
+                    break
+                print(f"the profiler saw {got['on_device']} of the replay's "
+                      "kernels; profiling the same eight again")
+                got = profile_tick(engines[name], images, tag=f"q{i}_")
+            if got["counted"] != want or (name == "captured"
+                                          and got["on_device"] != want):
+                raise AssertionError(f"{name} bucket-8 tick: counted "
+                                     f"{got['counted']}, on the device "
+                                     f"{got['on_device']}, want {want}")
+    print(f"bucket-8 capture tally {fired(tally)}: each profiled replay ran "
+          "as many DIGC and MRConv kernels on the device")
+    for name, eng in engines.items():
+        assert_no_faults(eng, f"phase 18, {name}")
+    # Phase 15's trace under capture against the eager engine, per policy.
+    frames = video_frames(cfg.image_size)
+    off = DigcSpec(impl="blocked", k=cfg.k)
+    policies = {"off": off, **specs}
+    ms: dict = {}
+    for name, spec in policies.items():
+        runs = {}
+        for cls in (VigServeEngine, EagerEngine, EagerEngine, VigServeEngine):
+            eng = cls(cfg, params, digc_impl=spec, autotune=False,
+                      buckets=(1, 2, 4, 8, 16), device=DEV)
+            res = serve_video(eng, frames)
+            assert_no_faults(eng, f"phase 18, {name}")
+            key = "captured" if cls is VigServeEngine else "eager"
+            ms.setdefault((name, key), []).extend(res["ms"][1:])
+            runs[key] = res
+        cap, eag = runs["captured"], runs["eager"]
+        for reqs, ereqs in zip(cap["reqs"], eag["reqs"]):
+            for r, e in zip(reqs, ereqs):
+                if not np.array_equal(r.logits, e.logits):
+                    raise AssertionError(f"{name} request {r.uid}: captured "
+                                         "logits differ from the eager engine's")
+        if any(cap["reads"][1:]):
+            raise AssertionError(f"{name}: gate reads on captured ticks "
+                                 f"{cap['reads']}")
+        print(f"phase-15 trace, {name}: captured bit for bit the eager "
+              f"engine; gate reads a tick captured {cap['reads']}, eager "
+              f"{eag['reads']}; median tick (ticks 2-{VIDEO_FRAMES}, two "
+              f"passes each) "
+              f"captured {statistics.median(ms[(name, 'captured')]):.3f} ms, "
+              f"eager {statistics.median(ms[(name, 'eager')]):.3f} ms")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -1474,8 +1845,10 @@ def main() -> None:
     tuning_counts, bucket_counts, _ = tuned_serving(rps_exact)
     pyramid_tuned()
     stateful_serving(phase4_counts, rps_exact)
-    spec = stale_graph_serving()
-    parking(spec)
+    specs = stale_graph_serving()
+    parking(specs["tick"])
+    faults_on_card(specs["tick"])
+    captured_vs_eager(specs)
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

@@ -1,6 +1,6 @@
 # Dynamic Image Graph Construction (DIGC) in PyTorch: the spec + builder
 # registry, the reference and blocked tiers, the graph ops, the functional
-# DIGC state, the tuner and the cost models.
+# DIGC state, fault injection, the tuner and the cost models.
 # Batched-first: (B, N, D) in, (B, N, k) int32 out, with (N, D) promoted
 # to B=1. The ``cuda`` tier registers from ``repro_torch.kernels.ops`` on
 # first use.
@@ -26,6 +26,7 @@ from repro_torch.core.digc import (
     dilate,
     pairwise_sq_dists,
 )
+from repro_torch.core.faults import SITES, FaultError, FaultInfo, FaultPlan
 from repro_torch.core.graph import (
     AGGREGATORS,
     degree_histogram,

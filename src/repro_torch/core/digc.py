@@ -23,13 +23,23 @@ is younger than ``max_stale`` gated calls, the cached graph is served
 and the build skipped. Where the JAX package branches with ``lax.cond``
 inside one compiled program, the port branches in Python on one
 device -> host read of the gate's decision per gated call
-(``gate_reads()`` counts them). Not ported: the eager ``cache=`` shim
-and ``fault_plan=``.
+(``gate_reads()`` counts them) when it runs eagerly. While the current
+stream is capturing a CUDA graph it reads nothing: it builds every row
+and keeps the reused rows' cached graph with a per-row select, which
+gives the same outputs. The ``overlap`` policy's refresh build runs on
+the current stream, or, given a ``RefreshFork`` (``digc(refresh=)``), on
+the card's side stream until the caller joins the fork
+(``models.vig.grapher_block`` forks and joins around its MRConv and FFN).
+
+``digc(fault_plan=)`` passes the node features through the plan's
+``digc.x`` site (``core/faults.py``) in eager calls; it is bypassed
+while the stream is capturing. Not ported: the eager ``cache=`` shim.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -179,6 +189,12 @@ def reset_gate_reads() -> None:
     gate_host_reads = 0
 
 
+def capturing(t: torch.Tensor) -> bool:
+    """True while ``t``'s device's current stream is capturing a CUDA
+    graph: no host read, no host-side fault site."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def _all_rows(flags: torch.Tensor) -> bool:
     """``flags.all()`` read on the host: the gate's one sync per call."""
     global gate_host_reads
@@ -208,7 +224,7 @@ def _stateful_build(builder, x3, y_arg, p3, spec, entry, m_valid=None):
 
 
 def _reuse_build(builder, x3, y_arg, p3, spec, entry, *, reuse_first,
-                 m_valid=None):
+                 m_valid=None, refresh=None):
     """The drift-gated reuse path around a stateful builder's build.
 
     Returns (idx, dist, new_entry). It is the plain stateful build (bit
@@ -230,7 +246,8 @@ def _reuse_build(builder, x3, y_arg, p3, spec, entry, *, reuse_first,
     stat = drift_stat(x3)
     if policy == "overlap":
         return _overlap_build(builder, x3, y_arg, p3, spec, entry,
-                              valid=valid, stat=stat, m_valid=m_valid)
+                              valid=valid, stat=stat, m_valid=m_valid,
+                              refresh=refresh)
 
     drift = (stat - entry.graph_snap).abs() / entry.graph_snap.abs().clamp_min(1e-9)
     if policy == "tick" and not reuse_first:
@@ -242,8 +259,10 @@ def _reuse_build(builder, x3, y_arg, p3, spec, entry, *, reuse_first,
         reuse_row = valid & (entry.graph_age < max_stale) & (drift < tau)
         age_inc = 1
 
-    # All rows reuse: the serving steady state, no distance compute.
-    if _all_rows(reuse_row):
+    # All rows reuse: the serving steady state, no distance compute. A
+    # captured graph cannot read the decision: it takes the mixed branch,
+    # whose reused rows carry exactly what this branch returns.
+    if not capturing(x3) and _all_rows(reuse_row):
         return (entry.graph_idx, entry.graph_dist,
                 entry.bump(graph_age=entry.graph_age + age_inc))
 
@@ -265,22 +284,70 @@ def _reuse_build(builder, x3, y_arg, p3, spec, entry, *, reuse_first,
     )
 
 
+@functools.cache
+def _side_stream(device: torch.device):
+    """The card's stream for ``overlap`` refresh builds."""
+    return torch.cuda.Stream(device)
+
+
+class RefreshFork:
+    """The ``overlap`` refresh builds of the ``digc(refresh=)`` calls given
+    this fork: each runs on the card's side stream after the work queued
+    so far on the current stream, and ``join()`` makes the current stream
+    wait for them. The caller works with the served graph meanwhile and
+    joins before it reads the returned state (a CUDA graph's capture must
+    join every fork before it ends). On the CPU a refresh runs in place.
+
+    Until the join the fork holds each refresh's inputs, so the allocator
+    cannot hand their memory to the current stream while the refresh may
+    still read them. The refresh's own tensors come from the side
+    stream's pool, whose every allocation follows a wait on the current
+    stream."""
+
+    def __init__(self):
+        self._device = None
+        self._held: list = []
+
+    def run(self, x3: torch.Tensor, fn, inputs: list):
+        """``fn()`` on the side stream (in place on the CPU)."""
+        if not x3.is_cuda:
+            return fn()
+        side = _side_stream(x3.device)
+        side.wait_stream(torch.cuda.current_stream(x3.device))
+        with torch.cuda.stream(side):
+            out = fn()
+        self._device = x3.device
+        self._held.append(inputs)
+        return out
+
+    def join(self) -> None:
+        if self._held:
+            torch.cuda.current_stream(self._device).wait_stream(
+                _side_stream(self._device))
+            self._held.clear()
+
+
 def _overlap_build(builder, x3, y_arg, p3, spec, entry, *, valid, stat,
-                   m_valid=None):
+                   m_valid=None, refresh=None):
     """Double-buffered overlap: warm rows are served the cached (one call
     stale) graph unconditionally, and the refresh build flows only into
     the returned entry (the next call's cache). Cold rows take a build in
-    the mixed branch (a second build that call, cold only). The refresh
-    runs on the current stream, after the served graph is selected."""
-    if _all_rows(valid):
+    the mixed branch (a second build that call, cold only; under capture
+    every row takes it and warm rows keep the cached graph). The refresh
+    runs after the served graph is selected: on the current stream, or
+    through ``refresh`` (a ``RefreshFork``) on the card's side stream."""
+    if not capturing(x3) and _all_rows(valid):
         idx, dist = entry.graph_idx, entry.graph_dist
     else:
         m_idx, m_dist, _ = _stateful_build(builder, x3, y_arg, p3, spec,
                                            entry, m_valid)
         idx = _mix_rows(valid, entry.graph_idx, m_idx)
         dist = _mix_rows(valid, entry.graph_dist, m_dist)
-    f_idx, f_dist, built = _stateful_build(builder, x3, y_arg, p3, spec,
-                                           entry, m_valid)
+    def build():
+        return _stateful_build(builder, x3, y_arg, p3, spec, entry, m_valid)
+
+    f_idx, f_dist, built = (build() if refresh is None else refresh.run(
+        x3, build, [x3, y_arg, p3, m_valid, entry]))
     return idx, dist, dataclasses.replace(
         built, graph_idx=f_idx, graph_dist=f_dist, graph_snap=stat,
         graph_age=torch.zeros_like(entry.graph_age))
@@ -300,6 +367,8 @@ def digc(
     state=None,
     state_key: Optional[str] = None,
     reuse_first: bool = True,
+    fault_plan=None,
+    refresh: Optional[RefreshFork] = None,
     m_valid: Optional[torch.Tensor] = None,
     **knobs,
 ):
@@ -320,7 +389,13 @@ def digc(
     ``reuse_first=False`` marks a later call of the same forward pass
     (the ``tick`` policy reuses those without re-gating). A stateless
     builder, or a state with no entry for the key, passes the state
-    through unchanged.
+    through unchanged. ``refresh`` (a ``RefreshFork``) moves the
+    ``overlap`` policy's refresh build onto the card's side stream: call
+    ``refresh.join()`` before reading the returned state.
+
+    ``fault_plan`` (a ``core.faults.FaultPlan``) passes the node features
+    through the plan's ``digc.x`` site before construction: a no-op when
+    None, and bypassed while the stream is capturing a CUDA graph.
     """
     spec = resolve_spec(
         spec, impl=impl, k=k, dilation=dilation, causal=causal, **knobs
@@ -332,6 +407,10 @@ def digc(
             f"DIGC impl {spec.impl!r} does not support pad-node masking "
             f"(m_valid); pad-capable impls: {_pad_capable()}"
         )
+    if fault_plan is not None and not capturing(x):
+        fired = fault_plan.fire("digc.x", value=x, impl=spec.impl)
+        if fired is not x:
+            x = torch.as_tensor(fired, device=x.device)
     x3, y3, p3, squeeze = promote_batch(x, y, pos_bias)
     y_arg = None if y is None else y3
     kw = {} if m_valid is None else {"m_valid": m_valid}
@@ -339,7 +418,7 @@ def digc(
     if entry is not None and builder.supports_state:
         idx, dist, new_entry = _reuse_build(
             builder, x3, y_arg, p3, spec, entry, reuse_first=reuse_first,
-            m_valid=m_valid)
+            m_valid=m_valid, refresh=refresh)
         state = state.set(state_key, new_entry)
     else:
         idx, dist = builder.build(x3, y_arg, p3, spec, **kw)

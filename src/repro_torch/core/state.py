@@ -46,6 +46,7 @@ operations copy: ``take_rows`` gathers new tensors, ``put_rows`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import zlib
 from typing import Optional, Union
 
@@ -158,6 +159,12 @@ class DigcStateEntry:
 def _row_host(entry: DigcStateEntry, f: str) -> Optional[np.ndarray]:
     v = getattr(entry, f)
     return None if v is None else np.ascontiguousarray(v.detach().cpu().numpy())
+
+
+@functools.lru_cache(maxsize=8)
+def _checksum_weights(n: int, device: torch.device) -> torch.Tensor:
+    """(n,) int64 odd weights below 2**15, made once per length."""
+    return torch.arange(1, 2 * n, 2, device=device) & 0x7FFF
 
 
 def entry_row_fingerprint(entry: DigcStateEntry, row: int) -> int:
@@ -313,6 +320,34 @@ class DigcState:
                     if finite[r] and not np.isfinite(host[r]).all():
                         finite[r] = False
         return finite
+
+    def row_checks(self) -> tuple[Optional[torch.Tensor], torch.Tensor]:
+        """Every row's screen, on the state's device, in a handful of
+        launches and no host read: a (B,) bool, True where every float
+        buffer of the row is finite (None when no entry has a float
+        buffer), and a (B,) int64 checksum of the row's bits across every
+        entry and ``ROW_FIELDS``. The serving engine pulls these, where
+        ``rows_finite`` and ``row_fingerprints`` (crc32, equal to JAX's)
+        copy every buffer to the host.
+
+        The checksum sums the row's 16-bit halves, read as signed, each
+        times an odd weight below 2**15: one flipped bit changes the sum
+        by an odd multiple of a power of two below 2**31, and no sum of
+        fewer than 2**33 halves overflows, so a single flip always
+        shows."""
+        bufs = [getattr(e, f) for e in self.entries.values()
+                for f in ROW_FIELDS if getattr(e, f) is not None]
+        if not bufs:
+            raise ValueError("row_checks needs an entry with per-row buffers")
+        halves = torch.cat([b.reshape(b.shape[0], -1).view(torch.int16)
+                            for b in bufs], dim=1)
+        sums = (halves * _checksum_weights(halves.shape[1],
+                                           halves.device)).sum(dim=1)
+        floats = [b.reshape(b.shape[0], -1) for b in bufs
+                  if b.is_floating_point()]
+        finite = (torch.isfinite(torch.cat(floats, dim=1)).all(dim=1)
+                  if floats else None)
+        return finite, sums
 
     def __len__(self) -> int:
         return len(self.entries)

@@ -2,6 +2,8 @@
 PyTorch version, plus the ``cuda`` GraphBuilder (``ops.py``). Importing
 this package builds nothing: the kernels compile at their first launch."""
 
+import contextlib
+
 from repro_torch.kernels import digc_topk, mrconv
 
 
@@ -20,3 +22,30 @@ def reset_launch_counts() -> None:
     digc_topk.digc_topk_launches = 0
     digc_topk.variant_launches = dict.fromkeys(digc_topk.VARIANTS, 0)
     mrconv.mrconv_launches = 0
+
+
+def add_launch_counts(tally: dict[str, int]) -> None:
+    """Add a tally (``launch_counts()``'s keys, missing keys 0) to the
+    counters: a replayed CUDA graph launches the kernels it recorded
+    without calling their wrappers."""
+    digc_topk.digc_topk_launches += tally.get("digc_topk", 0)
+    for v in digc_topk.VARIANTS:
+        digc_topk.variant_launches[v] += tally.get(f"digc_topk.{v}", 0)
+    mrconv.mrconv_launches += tally.get("mrconv", 0)
+
+
+@contextlib.contextmanager
+def uncounted_launches():
+    """Yield a dict that receives the launches the wrappers counted inside
+    the block, which are taken back out of the counters. A CUDA graph
+    capture calls the wrappers but launches nothing: its tally is added
+    at each replay instead."""
+    before = launch_counts()
+    tally: dict[str, int] = {}
+    try:
+        yield tally
+    finally:
+        after = launch_counts()
+        tally.update({k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+        add_launch_counts({k: -v for k, v in tally.items()})

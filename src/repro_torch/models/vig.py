@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.builder import DigcSpec, get_builder, reuse_params
-from repro_torch.core.digc import digc
+from repro_torch.core.digc import RefreshFork, digc
 from repro_torch.core.graph import mr_aggregate
 from repro_torch.core.state import DigcState, state_entry
 from repro_torch.core.tuner import VigSchedule
@@ -325,9 +325,13 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     builder = get_builder(dspec.impl)
     if digc_capture is not None:
         digc_capture.append((layer_key, h, cond))
+    # The overlap policy's refresh build runs beside MRConv and the FFN,
+    # joined before the block returns its state.
+    refresh = RefreshFork() if state is not None else None
     if state is not None:
         idx, state = digc(h, cond, spec=dspec, state=state,
-                          state_key=layer_key, reuse_first=reuse_first)
+                          state_key=layer_key, reuse_first=reuse_first,
+                          refresh=refresh)
     else:
         idx = digc(h, cond, spec=dspec)  # (B, N, k) int32
     aggregate = builder.aggregate if builder.aggregate is not None else mr_aggregate
@@ -337,6 +341,8 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     x = x + h
     f = _ln(x, bp["ln_f"]["scale"])
     f = F.gelu(f @ bp["fc1"], approximate="tanh") @ bp["fc2"]
+    if refresh is not None:
+        refresh.join()
     return x + f, state
 
 
