@@ -98,9 +98,33 @@ Phases, each printed as it runs; any failure exits non-zero:
     ran equal the launch counters' rise, which a replay takes from its
     capture's tally of 12 / 12); then phase 15's trace per policy,
     captured bit for bit the eager engine with no gate read on a captured
-    tick, and the median tick of each.
+    tick, and the median tick of each;
+19. the (B, N) lattice: ``vig_ti_iso`` at full width through
+    ``VigServeEngine(digc_impl="cuda", image_sizes=(160, 224, 448))``
+    (N = 100, 196 and 784; at 448 k = 18 and dilations 2-6, kd 36-108)
+    on ragged waves over buckets 1, 2, 4 and 8, tenants at two sizes, an
+    eviction that parks several sizes' rows and a re-admission: every
+    request's logits bit for bit an eager forward of its cell's batch, at
+    most |buckets| x |sizes| captured programs, 12 DIGC and 12 MRConv
+    launches a tick at every N, each cell's kernels against their plain
+    versions on its recorded features; each cell's steady tick in turns,
+    and the bucket-8 tick profiled at each size (busy share, host launch
+    calls). Then 192^2 and 320^2 requests padded to the 224 and 448
+    cells of a ``blocked`` engine, bit for bit a masked eager forward, no
+    pad node in any top-k; then ``vig_ti_pyr`` at 192^2, 224^2 and 256^2 on the kernel
+    tier (the positional embedding shrunk and grown);
+20. SLO admission: ``arrival_trace(seed=0, tenants=8, classes=("gold",
+    "default"), sizes=(224, 448))`` replayed on a ``VirtualClock`` with
+    ``slo_ms={"gold": 20, "default": 80}`` on captured ``cuda``-tier
+    programs (buckets 1, 2, 4: 8 tenants on 4 slots, so tenants park):
+    every deadline held, each tenant served in order, ``padded_lanes`` the
+    sum of (width - live), prefetch hits, logits bit for bit
+    ``prefetch=False``, and ``slo_ms=0`` bit for bit the legacy engine;
+    then the trace on the wall clock, ``slo_ms`` against ``slo_ms=0`` in
+    turns: requests/s, padded lanes and admission-to-logits p50 / p99 per
+    class (printed, not gated).
 
-Each path of phases 4, 5, 8, 10, 12 and 14 runs with the launch counts
+Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
 tier, which must launch none). A replayed graph adds the launches its
@@ -141,6 +165,7 @@ from repro_torch.kernels.digc_topk import BIG, digc_topk_cuda, digc_topk_plain  
 from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain  # noqa: E402
 from repro_torch.models import convert, vig  # noqa: E402
 from repro_torch.serve.engine import VigRequest, VigServeEngine  # noqa: E402
+from repro_torch.serve.sched import VirtualClock, arrival_trace, replay  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32
 # and bf16 on the tensor cores, HBM3 rate.
@@ -1828,6 +1853,408 @@ def captured_vs_eager(specs: dict) -> None:
               f"eager {statistics.median(ms[(name, 'eager')]):.3f} ms")
 
 
+# Phase 19's lattice: vig_ti_iso at three image sizes (N = 100, 196 and
+# 784; at 448 k ramps to 18 and the dilations to 2-6, kd 36-108),
+# and the ragged waves of (tenant, size) it serves on 8 slots: tenants at
+# two sizes, an eleventh tenant that evicts (parking every allocated
+# size's rows) and the evicted tenant's return.
+LATTICE_SIZES = (160, 224, 448)
+LATTICE_WAVES = [
+    [(f"t{i}", 224) for i in range(8)],
+    [("t0", 448), ("t1", 448), ("t2", 448)],
+    [("t3", 160), ("t4", 160)],
+    [("t8", 224)],
+    [("t5", 448)],
+    [("t0", 160), ("t1", 160), ("t2", 160), ("t3", 160), ("t4", 160),
+     (None, 160)],
+    [("t1", 224), ("t2", 224)],
+    [("t6", 448), ("t7", 448), ("t8", 448), ("t5", 448)],
+]
+
+
+def serve_cells(eng, waves: list, images) -> list:
+    """Submit each wave and serve it to the end (a wave of several cells
+    takes a tick per cell). ``images(uid, size)`` gives a request's
+    image. Returns per tick: (size, bucket, requests in slot order, the
+    launch counts the tick added, host-clock ms)."""
+    ticks, uid = [], 0
+    for wave in waves:
+        reqs = []
+        for tenant, size in wave:
+            reqs.append(VigRequest(uid, images(uid, size), tenant=tenant))
+            eng.submit(reqs[-1])
+            uid += 1
+        while eng.queue:
+            before = launch_counts()
+            waiting = [r for r in reqs if not r.done]
+            s = time.perf_counter()
+            eng.step()
+            ms = (time.perf_counter() - s) * 1e3
+            after = launch_counts()
+            served = [r for r in waiting if r.done]
+            order, bucket = bucket_batch(eng, served)
+            ticks.append((eng.last_cell[0], bucket, order,
+                          {k: after[k] - before[k] for k in after}, ms))
+    return ticks
+
+
+def steady_cell_ticks(eng, sizes, buckets, rounds: int = 3,
+                      per_turn: int = 4) -> dict:
+    """Median host-clock ms of a steady tick of each (size, bucket) cell:
+    the same ``bucket`` tenants every tick, the cells taken in turns
+    (forward, then backward)."""
+    cells = [(s, b) for s in sizes for b in buckets]
+    imgs = {s: [testing.images(5000 + i, 1, s)[0] for i in range(max(buckets))]
+            for s in sizes}
+
+    def tick(cell):
+        size, bucket = cell
+        for i in range(bucket):
+            eng.submit(VigRequest(9000 + i, imgs[size][i], tenant=f"p{i}"))
+        s = time.perf_counter()
+        eng.step()
+        if eng.last_cell != cell:
+            raise AssertionError(f"served {eng.last_cell}, expected {cell}")
+        return (time.perf_counter() - s) * 1e3
+
+    for cell in cells:  # first use of each cell (captures)
+        tick(cell)
+    ms: dict = {c: [] for c in cells}
+    for _ in range(rounds):
+        for cell in cells + cells[::-1]:
+            ms[cell] += [tick(cell) for _ in range(per_turn)]
+    return {c: statistics.median(v) for c, v in ms.items()}
+
+
+def lattice_serving() -> dict:
+    """Returns the timed pass's DIGC (and MRConv) launches by node count."""
+    phase("19. the (B, N) lattice: vig_ti_iso at 160^2, 224^2 and 448^2 on "
+          "the cuda tier, a padded blocked cell, vig_ti_pyr off its grid")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    for size in LATTICE_SIZES:
+        plans = vig.vig_stage_plans(cfg, "cuda", grid=size // cfg.patch)
+        kds = sorted({k * d for p in plans
+                      for k, d in zip(p.k_effs, p.dilations)})
+        print(f"{size}^2: N = M = {plans[0].n}, k {plans[0].spec.k}, "
+              f"dilations {list(plans[0].dilations)}, kd {kds}")
+    images = {}
+
+    def image(uid, size):
+        return images.setdefault((uid, size),
+                                 testing.images(3000 + uid, 1, size)[0])
+
+    eng = VigServeEngine(cfg, params, digc_impl="cuda",
+                         image_sizes=LATTICE_SIZES, device=DEV)
+    serve_cells(eng, LATTICE_WAVES, image)  # first use of each cell
+    reset_launch_counts()
+    ticks = serve_cells(eng, LATTICE_WAVES, image)
+    counts = fired(launch_counts())
+    stats = eng.stats()
+    print(f"stats: {json.dumps({k: stats[k] for k in ('cell_ticks', 'compile_count', 'parked_tenants', 'park_hits', 'park_evictions', 'padded_lanes', 'live_lanes')})}")
+    assert_no_faults(eng, "phase 19")
+    n_cells = len(eng.buckets) * len(eng.image_sizes)
+    if not stats["compile_count"] == len(eng._captured) <= n_cells:
+        raise AssertionError(f"{stats['compile_count']} programs, "
+                             f"{sorted(eng._captured)}, bound {n_cells}")
+    per_n: dict = {}
+    for size, bucket, order, added, _ in ticks:
+        if fired(added) != {"digc_topk": 12, "mrconv": 12}:
+            raise AssertionError(f"({size}, {bucket}) tick launched {added}")
+        n = (size // cfg.patch) ** 2
+        per_n[n] = per_n.get(n, 0) + 12
+    want = 12 * len(ticks)
+    if counts != {"digc_topk": want, "mrconv": want} or sorted(per_n) != [100, 196, 784]:
+        raise AssertionError(f"launches {counts} over {len(ticks)} ticks, by "
+                             f"N {per_n}")
+    if not eng.park_hits or not any(isinstance(p, dict) and len(p) > 1
+                                    for p in eng._parked.values()):
+        raise AssertionError(f"parking: hits {eng.park_hits}, parked "
+                             f"{ {t: sorted(p) for t, p in eng._parked.items()} }")
+    print(f"timed pass: {len(ticks)} ticks over cells "
+          f"{sorted({(s, b) for s, b, *_ in ticks})}; launches {counts}, DIGC "
+          f"and MRConv each by N {per_n}; parked "
+          f"{ {t: sorted(p) for t, p in eng._parked.items()} }")
+    check_bucket_forwards(params, cfg, "cuda", [(o, b) for _, b, o, _, _ in ticks])
+    print(f"every request's logits bit for bit an eager forward of its cell's "
+          f"batch ({sum(len(t[2]) for t in ticks)} requests)")
+    # Each cell's kernels against their plain versions on the features
+    # of its first tick in the timed pass.
+    for cell in sorted({(s, b) for s, b, *_ in ticks}):
+        first = next(t for t in ticks if t[:2] == cell)
+        capture: list = []
+        with torch.inference_mode():
+            vig.vig_forward(params, to_dev(stack_batch(first[2], cell[1])),
+                            cfg, digc_impl="cuda", digc_capture=capture)
+        print(f"cell {cell}: ", end="")
+        check_layers(capture, vig.vig_stage_plans(cfg, "cuda",
+                                                  grid=cell[0] // cfg.patch))
+    med = steady_cell_ticks(eng, LATTICE_SIZES, eng.buckets)
+    print("steady tick by (size, bucket) cell, median of 24 in turns: "
+          + ", ".join(f"{s}x{b} {m:.3f} ms" for (s, b), m in med.items()))
+    profiles = {}
+    for size in LATTICE_SIZES:
+        print(f"profiled steady bucket-8 tick at {size}^2:")
+        imgs = [testing.images(5000 + i, 1, size)[0] for i in range(8)]
+        profiles[size] = profile_tick(eng, imgs, tag="p")
+        if profiles[size]["counted"] != {"digc_topk": 12, "mrconv": 12}:
+            raise AssertionError(f"{size}^2 profiled tick {profiles[size]}")
+    assert_no_faults(eng, "phase 19 timing")
+    padded_cell()
+    pyramid_lattice()
+    return per_n
+
+
+def padded_cell() -> None:
+    """192^2 and 320^2 requests padded up to the 224 and 448 cells of a
+    blocked-tier engine (the kernel tier takes no mask): bit for bit a
+    masked eager forward of each tick's batch, and no pad node in any
+    row's top-k."""
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    eng = VigServeEngine(cfg, params, digc_impl="blocked", autotune=False,
+                         image_sizes=(224, 448), device=DEV)
+    waves = [[("a", 192), ("b", 192), ("c", 320)],
+             [("a", 192), ("c", 320), ("d", 320)],
+             [("b", 224), ("e", 192)]]
+    images = {}
+
+    def image(uid, size):
+        return images.setdefault((uid, size),
+                                 testing.images(4000 + uid, 1, size)[0])
+
+    serve_cells(eng, waves, image)  # first use of each cell
+    ticks = serve_cells(eng, waves, image)
+    spec = vig.resolve_digc_spec(cfg, "blocked")
+    pad_ticks = 0
+    for size, bucket, order, added, _ in ticks:
+        if fired(added):
+            raise AssertionError(f"the blocked tier launched {added}")
+        canv, masks = [], []
+        for r in order:
+            h = r.image.shape[0]
+            c = np.zeros((size, size, 3), np.float32)
+            c[:h, :h] = r.image
+            canv.append(c)
+            m = np.zeros((size // cfg.patch,) * 2, bool)
+            m[:h // cfg.patch, :h // cfg.patch] = True
+            masks.append(m.reshape(-1))
+        padded = any(r.image.shape[0] < size for r in order)
+        pad = bucket - len(order)
+        batch = to_dev(np.stack(canv + [canv[0]] * pad))
+        mask = to_dev(np.stack(masks + [masks[0]] * pad)) if padded else None
+        capture: list = []
+        with torch.inference_mode():
+            ref = vig.vig_forward(params, batch, cfg, digc_impl="blocked",
+                                  valid_mask=mask, digc_capture=capture)
+        ref = ref.cpu().numpy()
+        for i, r in enumerate(order):
+            if not np.array_equal(r.logits, ref[i]):
+                raise AssertionError(
+                    f"padded request {r.uid} ({r.image.shape[0]} -> {size}): "
+                    f"logits differ from the masked eager forward by "
+                    f"{float(np.abs(r.logits - ref[i]).max())}")
+        if mask is None:
+            continue
+        pad_ticks += 1
+        plan = vig.vig_stage_plans(cfg, "blocked", grid=size // cfg.patch)[0]
+        for (_, h, _), k, dil in zip(capture, plan.k_effs, plan.dilations):
+            with torch.inference_mode():
+                idx, dist = digc(h, spec=spec.replace(k=k, dilation=dil),
+                                 m_valid=mask, return_dists=True)
+            live_nb = torch.gather(mask, 1, idx.reshape(idx.shape[0], -1).long())
+            if not bool(live_nb.all()):
+                raise AssertionError(f"a pad node entered a top-k at {size}^2")
+            # the live rows' lists equal a build over the live nodes alone
+            for b in range(len(order)):
+                keep = mask[b].nonzero().squeeze(1)
+                with torch.inference_mode():
+                    li, ld = digc(h[b:b + 1, keep], spec=spec.replace(
+                        k=k, dilation=dil), return_dists=True)
+                testing.assert_topk_match(
+                    idx[b:b + 1, keep].cpu().numpy(), dist[b:b + 1, keep].cpu().numpy(),
+                    keep[li.long()].cpu().numpy(), ld.cpu().numpy(),
+                    rtol=RTOL, atol=ATOL)
+    assert_no_faults(eng, "phase 19, padded cell")
+    if not pad_ticks or not any(len(k) == 3 for k in eng._captured):
+        raise AssertionError(f"no padded cell served: {sorted(eng._captured, key=str)}")
+    print(f"padded cells {sorted((k for k in eng._captured if len(k) == 3))}: "
+          f"{sum(len(t[2]) for t in ticks)} requests bit for bit a masked "
+          f"eager forward; in {pad_ticks} padded ticks every neighbour of "
+          f"every row is a live node, and the live rows' lists equal a build "
+          f"over the live nodes alone")
+
+
+def pyramid_lattice() -> None:
+    """One tick of vig_ti_pyr at 192^2, 224^2 and 256^2 (its positional
+    embedding shrunk 56 -> 48 and grown 56 -> 64) on the cuda tier."""
+    cfg = vig.VIG_VARIANTS["vig_ti_pyr"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                                 device=DEV)
+    eng = VigServeEngine(cfg, params, digc_impl="cuda",
+                         image_sizes=(192, 224, 256), device=DEV)
+    waves = [[("a", 192), ("b", 192)], [("a", 224)], [("a", 256), ("c", 256)]]
+    reset_launch_counts()
+    ticks = serve_cells(eng, waves, lambda uid, s: testing.images(
+        6000 + uid, 1, s)[0])
+    blocks = sum(cfg.depths)
+    for size, bucket, order, added, ms in ticks:
+        if fired(added) != {"digc_topk": blocks, "mrconv": blocks}:
+            raise AssertionError(f"pyr ({size}, {bucket}) launched {added}")
+        print(f"pyr {size}^2, bucket {bucket}: stage N "
+              f"{[p.n for p in vig.vig_stage_plans(cfg, 'cuda', grid=size // 4)]}, "
+              f"first tick (captures) {ms:.1f} ms")
+    check_bucket_forwards(params, cfg, "cuda", [(o, b) for _, b, o, _, _ in ticks])
+    assert_no_faults(eng, "phase 19, pyr")
+    print(f"vig_ti_pyr: {len(ticks)} ticks bit for bit eager forwards of "
+          f"their batches, {blocks} DIGC and MRConv launches a tick")
+
+
+SCHED_SLO = {"gold": 20.0, "default": 80.0}
+
+
+def sched_engine(cfg, params, **kw):
+    """Phase 20's engine: the kernel tier at 224^2 and 448^2 on 4 slots."""
+    return VigServeEngine(cfg, params, digc_impl="cuda", buckets=(1, 2, 4),
+                          image_sizes=(224, 448), device=DEV, **kw)
+
+
+def stamped_replay(eng, trace, images, clock) -> tuple[list, list]:
+    """``replay`` with each request recorded and stamped with the clock's
+    time when its logits reached the host. Returns (requests, ticks)."""
+    reqs: list = []
+    submit, step = eng.submit, eng.step
+
+    def submit_rec(req):
+        submit(req)
+        reqs.append(req)
+
+    def step_rec():
+        n = step()
+        now = clock.now()
+        for r in reqs:
+            if r.done and not hasattr(r, "_done_t"):
+                r._done_t = now
+        return n
+
+    eng.submit, eng.step = submit_rec, step_rec
+    ticks = replay(eng, trace, images, clock=clock)
+    return reqs, ticks
+
+
+def wall_replay(eng, trace, images) -> tuple[list, float]:
+    """The trace on the wall clock: sleep to each arrival, submit, offer
+    a tick, wake at each admission deadline between arrivals, drain.
+    Returns the requests, stamped when their logits reached the host,
+    and the seconds the replay took."""
+    reqs: list = []
+
+    def tick():
+        eng.step()
+        now = time.monotonic()
+        for r in reqs:
+            if r.done and not hasattr(r, "_done_t"):
+                r._done_t = now
+
+    t0 = time.monotonic()
+    for uid, arr in enumerate(trace):
+        t_arr = t0 + arr.t_ms / 1e3
+        while eng.queue:
+            dl = eng.next_deadline()
+            if dl is None or dl >= t_arr:
+                break
+            time.sleep(max(0.0, dl - time.monotonic()))
+            tick()
+        time.sleep(max(0.0, t_arr - time.monotonic()))
+        reqs.append(VigRequest(uid, images[arr.tenant], tenant=arr.tenant,
+                               tclass=arr.tclass))
+        eng.submit(reqs[-1])
+        tick()
+    while eng.queue:
+        dl = eng.next_deadline()
+        if dl is not None:
+            time.sleep(max(0.0, dl - time.monotonic()))
+        tick()
+    return reqs, time.monotonic() - t0
+
+
+def scheduler_phase() -> None:
+    phase("20. SLO admission: arrival_trace(seed=0, 8 tenants, gold/default, "
+          "224/448) on captured cuda-tier programs")
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    trace = arrival_trace(seed=0, tenants=8, classes=("gold", "default"),
+                          sizes=(224, 448))
+    sizes = {a.tenant: a.size for a in trace}
+    images = {t: testing.images(7000 + int(t[1:]), 1, s)[0]
+              for t, s in sizes.items()}
+    runs = {}
+    for name, kw in (("sched", dict(slo_ms=SCHED_SLO)),
+                     ("sched_noprefetch", dict(slo_ms=SCHED_SLO, prefetch=False)),
+                     ("slo0", dict(slo_ms=0.0)), ("legacy", {})):
+        clock = VirtualClock()
+        eng = sched_engine(cfg, params, **kw, **({"clock": clock} if kw else {}))
+        reqs, ticks = stamped_replay(eng, trace, images, clock)
+        assert_no_faults(eng, f"phase 20, {name}")
+        runs[name] = (eng, reqs, ticks)
+    eng, reqs, ticks = runs["sched"]
+    late = [r.uid for r in reqs
+            if r._done_t > r._enq_t + eng._slo_s(r) + 1e-9]
+    order: dict = {}
+    for r in sorted(reqs, key=lambda r: (r._done_t, r.uid)):
+        order.setdefault(r.tenant, []).append(r.uid)
+    if late or any(u != sorted(u) for u in order.values()):
+        raise AssertionError(f"deadline misses {late}; order {order}")
+    st = eng.stats()
+    if st["padded_lanes"] != sum(w - live for _, live, w in ticks):
+        raise AssertionError(f"padded lanes {st['padded_lanes']}, ticks {ticks}")
+    if not st["prefetch_hits"] or not st["deferrals"]:
+        raise AssertionError(f"prefetch {st['prefetch_issued']} / "
+                             f"{st['prefetch_hits']}, deferrals {st['deferrals']}")
+    for a, b, what in (("sched", "sched_noprefetch", "prefetch=False"),
+                       ("slo0", "legacy", "the legacy engine")):
+        for r, s in zip(runs[a][1], runs[b][1]):
+            if r.logits.tobytes() != s.logits.tobytes():
+                raise AssertionError(f"{a} request {r.uid}: logits differ from "
+                                     f"{what}'s")
+    leg = runs["legacy"][0].stats()
+    print(f"virtual clock: {len(reqs)} requests in {len(ticks)} ticks, "
+          f"deferrals {st['deferrals']}, every deadline held, each tenant in "
+          f"order; padded lanes {st['padded_lanes']} (= sum of width - live), "
+          f"util {st['util']:.3f}; prefetch issued {st['prefetch_issued']}, "
+          f"hits {st['prefetch_hits']}, park hits {st['park_hits']}; cells "
+          f"{st['cell_ticks']}; logits bit for bit prefetch=False; slo_ms=0 "
+          f"bit for bit the legacy engine ({leg['padded_lanes']} padded lanes "
+          f"in {sum(leg['bucket_ticks'].values())} ticks)")
+    # The same trace on the wall clock, slo_ms against slo_ms=0, in turns.
+    wall = {"sched": sched_engine(cfg, params, slo_ms=SCHED_SLO),
+            "slo0": sched_engine(cfg, params)}
+    for e in wall.values():
+        wall_replay(e, trace, images)  # first use of each cell (captures)
+    out: dict = {k: {"rps": [], "padded": [], "lat": {}} for k in wall}
+    for name in ("sched", "slo0", "slo0", "sched"):
+        e = wall[name]
+        padded = e.padded_lanes
+        got, sec = wall_replay(e, trace, images)
+        out[name]["rps"].append(len(got) / sec)
+        out[name]["padded"].append(e.padded_lanes - padded)
+        for r in got:
+            out[name]["lat"].setdefault(r.tclass, []).append(
+                (r._done_t - r._enq_t) * 1e3)
+    for name, e in wall.items():
+        assert_no_faults(e, f"phase 20 wall, {name}")
+        o = out[name]
+        lat = ", ".join(
+            f"{c} p50 {np.percentile(v, 50):.2f} ms p99 {np.percentile(v, 99):.2f} ms"
+            for c, v in sorted(o["lat"].items()))
+        print(f"wall clock, {name}: requests/s "
+              f"{', '.join(f'{v:.2f}' for v in o['rps'])}; padded lanes "
+              f"{o['padded']}; admission to logits {lat}")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -1849,6 +2276,8 @@ def main() -> None:
     parking(specs["tick"])
     faults_on_card(specs["tick"])
     captured_vs_eager(specs)
+    lattice_per_n = lattice_serving()
+    scheduler_phase()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of
@@ -1880,6 +2309,9 @@ def main() -> None:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": row["shape"]})
+        if kname in ("digc_topk", "mrconv"):
+            # phase 19's timed pass over the lattice, by node count N
+            summary[-1]["lattice_launches"] = lattice_per_n
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -55,7 +55,7 @@ from repro_torch.core.builder import (
     resolve_spec,
     reuse_params,
 )
-from repro_torch.core.engine import stream_topk
+from repro_torch.core.engine import live_mask, stream_topk
 
 # Large-but-finite sentinel: inf would give nan under (inf - inf) when a
 # positional bias is added to a masked lane.
@@ -109,7 +109,7 @@ def digc_reference(
         raise ValueError(f"k*dilation={kd} exceeds number of co-nodes M={m}")
     d_xy = pairwise_sq_dists(x3, y3, p3)
     if m_valid is not None:
-        mask = torch.as_tensor(m_valid, dtype=torch.bool, device=d_xy.device)
+        mask = live_mask(m_valid, d_xy.device)
         mask = mask[None, None, :] if mask.ndim == 1 else mask[:, None, :]
         d_xy = torch.where(mask, d_xy, BIG)
     if causal:

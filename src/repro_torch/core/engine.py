@@ -56,6 +56,24 @@ _SELECT_GROUP_W = 32
 _SELECT_GROUP_W_MAX = 64
 
 
+def live_mask(m_valid, device: torch.device) -> torch.Tensor:
+    """A pad-node mask ((M,) or (B, M)) as a bool tensor on ``device``.
+    A bool tensor already there is returned as it is: nothing is copied,
+    so a captured CUDA graph reads the caller's buffer, a static input
+    refilled before each replay. Anything else (numpy, a CPU tensor) is
+    copied, which a capture cannot record: that raises."""
+    if (isinstance(m_valid, torch.Tensor) and m_valid.dtype == torch.bool
+            and m_valid.device == device):
+        return m_valid
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise ValueError(
+            "m_valid must be a bool tensor on the capturing device: a host "
+            "mask would be copied once, into the captured graph")
+    if isinstance(m_valid, torch.Tensor):
+        return m_valid.to(device=device, dtype=torch.bool)
+    return torch.as_tensor(m_valid, dtype=torch.bool, device=device)
+
+
 def _ceil_to(v: int, mult: int) -> int:
     return ((v + mult - 1) // mult) * mult
 
@@ -150,7 +168,7 @@ def stream_topk(
     if m_valid is not None:
         # Pad co-nodes are masked through their norm: one site covers
         # every merge and the fused operands.
-        mask = torch.as_tensor(m_valid, dtype=torch.bool, device=x3.device)
+        mask = live_mask(m_valid, x3.device)
         mask = mask[None, :] if mask.ndim == 1 else mask
         if mask.shape[-1] != m:
             raise ValueError(

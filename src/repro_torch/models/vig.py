@@ -14,9 +14,11 @@ weights (in, out). Construction state crosses blocks and requests as a
 functional ``core.state.DigcState`` (``init_vig_state``; ``vig_forward(...,
 state=)`` returns ``(logits, new_state)``): blocks of a stage share one
 entry, so block l + 1 warm-starts from block l (or, under a ``reuse``
-policy, serves its graph). Not ported yet: the eager cache, pad-node
-masks (``valid_mask``) and off-native serving grids (any grid but the
-native one raises ``VigGridError``).
+policy, serves its graph). The forward serves any square grid that
+``vig_stage_plans`` accepts (the positional embedding is resampled as
+``jax.image.resize`` does, ``_pos_for_grid``), and ``valid_mask`` keeps
+zero-padded pad nodes out of every top-k and the mean pooling. Not
+ported: the eager cache.
 """
 
 from __future__ import annotations
@@ -24,12 +26,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.builder import DigcSpec, get_builder, reuse_params
 from repro_torch.core.digc import RefreshFork, digc
+from repro_torch.core.engine import live_mask
 from repro_torch.core.graph import mr_aggregate
 from repro_torch.core.state import DigcState, state_entry
 from repro_torch.core.tuner import VigSchedule
@@ -183,15 +187,42 @@ def _resolution_dilation(d: int, grid: int, base_grid: int) -> int:
     return int(round(d * (1.0 + frac)))
 
 
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) weights of ``jax.image.resize(method="bilinear")``
+    along one axis (``compute_weight_mat`` of JAX's
+    ``scale_and_translate``): a triangle kernel on half-pixel centres,
+    widened by 1 / scale when shrinking (the antialias), each output's
+    weights normalised to sum 1, in fp32. The inverse scale is
+    ``n_in / n_out`` rounded once to fp32, as the compiled JAX resize
+    folds it (``1 / fp32(n_out / n_in)`` moves the samples by an ulp,
+    which shows as ~3e-5 at 56 -> 64). Built on ``device`` with no host
+    copy, so a CUDA graph can capture it."""
+    inv = float(np.float32(n_in / n_out))
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    cols = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = (1.0 - (sample[:, None] - cols[None, :]).abs() / max(inv, 1.0)).clamp_min(0.0)
+    total = w.sum(dim=1, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
 def _pos_for_grid(pos: torch.Tensor, base_grid: int, grid: int) -> torch.Tensor:
-    """The positional embedding at the serving grid: the identity at the
-    native grid. Resampling to other grids is not ported yet."""
-    if grid != base_grid:
-        raise VigGridError(
-            f"serving grid {grid} differs from the native grid {base_grid}; "
-            "off-native resolutions are not ported yet"
-        )
-    return pos
+    """The learned (base_grid^2, D) positional embedding at a serving
+    grid: reshaped to 2D, resized bilinearly as ``jax.image.resize``
+    does (two separable products with ``_resize_weights``), flattened.
+    Deterministic, so an engine forward and its B = 1 replay see the
+    same embedding bit for bit; the identity at the native grid."""
+    if grid == base_grid:
+        return pos
+    d = pos.shape[-1]
+    w = _resize_weights(base_grid, grid, pos.device)  # (grid, base_grid)
+    pos2d = pos.float().reshape(base_grid, base_grid, d)
+    rows = torch.einsum("ih,hwd->iwd", w, pos2d)
+    out = torch.einsum("jw,iwd->ijd", w, rows)
+    return out.reshape(grid * grid, d).to(pos.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +334,8 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
                   layer_key: Optional[str] = None,
                   state: Optional[DigcState] = None,
                   reuse_first: bool = True,
-                  digc_capture: Optional[list] = None):
+                  digc_capture: Optional[list] = None,
+                  m_valid: Optional[torch.Tensor] = None):
     """x (B, N, D) -> ((B, N, D), state); one Grapher + FFN residual pair.
 
     ``state`` (a ``DigcState`` keyed by ``layer_key``) is threaded
@@ -311,7 +343,10 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     marks the first block of a stage in a forward pass, the gate point of
     the ``tick`` reuse policy. ``digc_capture`` (a list) collects
     ``(layer_key, h, cond)`` per DIGC call: the nodes and co-nodes (None
-    for a self-graph) it was given.
+    for a self-graph) it was given. ``m_valid`` ((N,) or (B, N) bool)
+    marks live nodes when the batch carries pad nodes: DIGC masks the pad
+    co-nodes out of every top-k (self-graph stages only; ``vig_forward``
+    screens that).
     """
     dspec = digc_spec if digc_spec is not None else resolve_digc_spec(cfg, None)
     h = _ln(x, bp["ln_g"]["scale"])
@@ -331,9 +366,9 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     if state is not None:
         idx, state = digc(h, cond, spec=dspec, state=state,
                           state_key=layer_key, reuse_first=reuse_first,
-                          refresh=refresh)
+                          refresh=refresh, m_valid=m_valid)
     else:
-        idx = digc(h, cond, spec=dspec)  # (B, N, k) int32
+        idx = digc(h, cond, spec=dspec, m_valid=m_valid)  # (B, N, k) int32
     aggregate = builder.aggregate if builder.aggregate is not None else mr_aggregate
     agg = aggregate(h, cond if cond is not None else h, idx)
     h = torch.cat([h, agg], dim=-1) @ bp["fc_graph"]
@@ -348,7 +383,8 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
 
 def run_stage(stage_params: dict, x: torch.Tensor, cfg: VigConfig,
               plan: StagePlan, *, state: Optional[DigcState] = None,
-              digc_capture: Optional[list] = None):
+              digc_capture: Optional[list] = None,
+              m_valid: Optional[torch.Tensor] = None):
     """Run one pipeline stage: ``plan.depth`` Grapher+FFN blocks sharing
     the stage's state key. Returns ``(x, state)``."""
     for bi in range(plan.depth):
@@ -356,6 +392,7 @@ def run_stage(stage_params: dict, x: torch.Tensor, cfg: VigConfig,
             stage_params[f"block{bi}"], x, cfg, plan.grid, plan.r,
             plan.dilations[bi], digc_spec=plan.spec, layer_key=plan.key,
             state=state, reuse_first=(bi == 0), digc_capture=digc_capture,
+            m_valid=m_valid,
         )
     return x, state
 
@@ -363,7 +400,8 @@ def run_stage(stage_params: dict, x: torch.Tensor, cfg: VigConfig,
 def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
                 digc_impl: DigcChoice = None,
                 state: Optional[DigcState] = None,
-                digc_capture: Optional[list] = None):
+                digc_capture: Optional[list] = None,
+                valid_mask: Optional[torch.Tensor] = None):
     """images (B, H, W, C) -> class logits (B, num_classes), or
     ``(logits, new_state)`` when ``state`` is given.
 
@@ -375,6 +413,17 @@ def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
     requests: feeding the returned state into the next call warm-starts
     it. ``digc_capture`` collects every DIGC call's ``(layer_key, nodes,
     co_nodes)``.
+
+    The serving grid is the image's: square, divisible by ``cfg.patch``
+    and accepted by ``vig_stage_plans`` (``VigGridError`` otherwise); off
+    the native grid the positional embedding is resampled
+    (``_pos_for_grid``) and k and the dilation ramp per stage.
+    ``valid_mask`` ((N,) or (B, N) bool; a device tensor is used as it
+    is, so a captured program may take it as a static input) marks live
+    nodes of images zero-padded up to a larger grid: pad nodes are
+    masked out of every DIGC top-k and the mean pooling. Single-stage
+    models with r = 1 only (pooling and downsampling would mix pad and
+    live rows): others raise ``VigGridError``.
     """
     b, hh, ww, _ = images.shape
     if hh != ww:
@@ -388,14 +437,31 @@ def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
         )
     grid0 = hh // cfg.patch
     plans = vig_stage_plans(cfg, digc_impl, grid=grid0)
+    if valid_mask is not None and (
+        len(cfg.depths) > 1 or any(p.r > 1 for p in plans)
+    ):
+        raise VigGridError(
+            f"valid_mask (N-bucket pad nodes) requires a single-stage "
+            f"model with r=1 — pooling/downsampling mixes pad and live "
+            f"rows; model {cfg.name!r} has depths={cfg.depths}, "
+            f"reduce_ratios={cfg.reduce_ratios}"
+        )
+    mask = None
+    if valid_mask is not None:
+        mask = live_mask(valid_mask, images.device)
     x = patchify(images, cfg.patch) @ params["stem"]
     x = x + _pos_for_grid(params["pos"], cfg.base_grid, grid0)
     for plan in plans:
         x, state = run_stage(params[plan.key], x, cfg, plan, state=state,
-                             digc_capture=digc_capture)
+                             digc_capture=digc_capture, m_valid=mask)
         if plan.index + 1 < len(cfg.depths):
             x = _downsample(x, plan.grid, params[f"down{plan.index}"])
-    logits = x.mean(dim=1) @ params["head"]
+    if mask is None:
+        pooled = x.mean(dim=1)
+    else:
+        w = (mask[None, :] if mask.ndim == 1 else mask).to(x.dtype)[..., None]
+        pooled = (x * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
+    logits = pooled @ params["head"]
     if state is not None:
         return logits, state
     return logits
@@ -414,13 +480,10 @@ def init_vig_state(cfg: VigConfig, batch: int,
     ``reuse`` policy gets the stale-graph buffers, sized by the stage's
     first block ``(batch, plan.n, plan.k_effs[0])``, as
     ``grapher_block`` derives it (a later block whose clamped k differs
-    never engages the cache). ``grid`` must be the native grid until
-    off-native grids are ported.
+    never engages the cache). ``grid`` sizes the state for a serving grid
+    (default: the native one): the multi-resolution engine keeps one
+    state per image size, each sized by the plans its forward runs.
     """
-    if grid is not None and int(grid) != cfg.base_grid:
-        raise VigGridError(
-            f"init_vig_state: grid {grid} differs from the native grid "
-            f"{cfg.base_grid}; off-native resolutions are not ported yet")
     rows = batch if per_slot else None
     entries = {}
     for plan in vig_stage_plans(cfg, digc_impl, grid=grid):
@@ -475,9 +538,11 @@ class Vig(nn.Module):
 
     def forward(self, images: torch.Tensor, *,
                 state: Optional[DigcState] = None,
-                digc_capture: Optional[list] = None):
+                digc_capture: Optional[list] = None,
+                valid_mask: Optional[torch.Tensor] = None):
         """Logits, or ``(logits, new_state)`` when ``state`` is given
-        (``init_vig_state(cfg, batch, self.digc_impl)``)."""
+        (``init_vig_state(cfg, batch, self.digc_impl)``); ``valid_mask``
+        marks the live nodes of zero-padded images (``vig_forward``)."""
         return vig_forward(self.params(), images, self.cfg,
                            digc_impl=self.digc_impl, state=state,
-                           digc_capture=digc_capture)
+                           digc_capture=digc_capture, valid_mask=valid_mask)

@@ -1,1 +1,3 @@
-# Serving: the multi-tenant bucketed ViG image engine (serve/engine.py).
+# Serving: the multi-tenant bucketed ViG image engine on the (B, N) lattice
+# (serve/engine.py) and the admission scheduler's clock and traces
+# (serve/sched.py).

@@ -5,7 +5,8 @@ Requests occupy fixed slots (``slots = max(buckets)``). Each tick gathers
 the queued requests' slots, one lane per tenant, pads the batch to the
 smallest bucket that fits and runs that bucket's program. A tenant keeps
 its slot across ticks; a new tenant takes a free slot first, else the
-least recently used idle one.
+least recently used idle one. ``buckets=None`` is the exact-size policy:
+one program per exact active batch size.
 
 DIGC state is per slot: one canonical ``DigcState`` with a row per slot
 (``init_vig_state(per_slot=True)``). A tick takes the picked lanes' rows,
@@ -19,19 +20,43 @@ oldest copy dropped first) and restored when it returns. ``release()``
 drops a tenant and its parked copy. The ``cuda`` tier is stateless: its
 state rows pass through unchanged.
 
-Each bucket has one program, the counterpart of the JAX engine's jitted
-program per bucket (``mode="jit"``; ``mode="eager"`` makes the request
-path raise, as in JAX). On a card the program is captured as one
-``torch.cuda.CUDAGraph``: a bucket's first tick is served eagerly on the
+The multi-resolution lattice (``image_sizes=``, DESIGN.md §13): each
+configured image size is an N-bucket with its own per-slot state
+(``_slot_states[size]``), programs and schedules. A request of a
+configured size serves unmasked; a ragged size is zero-padded up to the
+smallest size that fits and carries a live-node mask (``valid_mask``) that
+keeps its pad nodes out of every top-k and the pooling (single-stage
+r = 1 models and a pad-capable DIGC tier only: ``cuda`` is not one, so
+padded cells serve on ``blocked``). A tick serves one (size, masked) cell,
+so a mixed trace builds at most |buckets| x |image_sizes| programs (twice
+that with padded cells). Parked copies hold every allocated size's rows.
+Without ``image_sizes`` the engine is single-size, with the exact-shape
+submit contract and bare-bucket program keys.
+
+SLO-bounded admission (``slo_ms``, ``clock``, ``prefetch``; DESIGN.md
+§14): a positive ``slo_ms`` (scalar ms, or ``{tenant class: ms}`` keyed by
+``VigRequest.tclass``) arms the scheduler. A tick then dispatches a cell
+only when its earliest member deadline has arrived or it holds a full
+slot width of tenants, and defers otherwise (``deferrals``; ``run()``
+advances the clock to the next deadline). ``clock`` injects the time
+source (``serve.sched.VirtualClock`` in tests), and ``prefetch`` starts a
+parked tenant's host -> device row upload when the queue names it for the
+next tick. ``slo_ms=0`` (the default) is the bind-on-next-tick engine.
+
+Each bucket (or lattice cell) has one program, the counterpart of the JAX
+engine's jitted program (``mode="jit"``; ``mode="eager"`` makes the
+request path raise, as in JAX). On a card the program is captured as one
+``torch.cuda.CUDAGraph``: a cell's first tick is served eagerly on the
 capture stream (the capture's warm-up) and then captured from static
-buffers (the bucket's device image buffer, filled from a pinned staging
-buffer, and the tick's state rows); every later tick copies its rows into
-the static inputs, replays, and scatters from the static outputs.
-Captured programs are counted in ``compile_count`` (and reported to
-``on_compile``); on the CPU there is nothing to capture, the program runs
-eagerly and is counted when it is built. A replay launches the kernels
-the capture recorded without calling their wrappers, so the engine adds
-the capture's launch tally to the counters at each replay.
+buffers (the cell's device image buffer, filled from a pinned staging
+buffer, a padded cell's device mask buffer, filled the same way, and the
+tick's state rows); every later tick copies its rows into the static
+inputs, replays, and scatters from the static outputs. Captured programs
+are counted in ``compile_count`` (and reported to ``on_compile``); on the
+CPU there is nothing to capture, the program runs eagerly and is counted
+when it is built. A replay launches the kernels the capture recorded
+without calling their wrappers, so the engine adds the capture's launch
+tally to the counters at each replay.
 
 Fault tolerance (DESIGN.md §11): ``fault_plan`` (``core.faults``) injects
 failures at the engine's sites; ``guards=True`` screens each picked lane
@@ -40,24 +65,25 @@ rows quarantine the lane; rows whose checksum tokens no longer match are
 served cold), while co-batched lanes are served as if the faulty one never
 existed. The screen is taken on the device and pulled once a tick
 (``DigcState.row_checks``, where JAX fingerprints rows with crc32 on the
-host); the new tokens of the rows a tick writes ride its logits' transfer. A failing program build is retried with backoff and then walks
-the degradation ladder (``core.builder.fallback_chain``: ``cuda`` ->
-``blocked`` -> ``reference``), as do ``deadline_strikes`` consecutive
-ticks over ``deadline_ms`` (a program's first tick, which captures, never
-counts). A capture or launch error is not a build failure: it raises out
-of ``step()``.
+host); the new tokens of the rows a tick writes ride its logits' transfer.
+Tokens are kept per (size, slot). A failing program build is retried with
+backoff and then walks the degradation ladder
+(``core.builder.fallback_chain``: ``cuda`` -> ``blocked`` ->
+``reference``), as do ``deadline_strikes`` consecutive ticks over
+``deadline_ms`` (a program's first tick, which captures, never counts). A
+capture or launch error is not a build failure: it raises out of
+``step()``.
 
 With the config's ``blocked`` tier and ``autotune=True`` the DIGC
 schedule is tuned (``core.tuner``): ``warmup()`` tunes a per-stage
-``VigSchedule`` at ``batch`` for the direct path, and a bucket's first
-tick tunes one schedule per configured bucket (before any capture), whose
-candidates include the ``cuda`` kernel with both of its merges. The
-tuner's host-keyed JSON cache (``tuner_path``) makes a later engine tune
-nothing, and also keeps the bucket set that ``retune_buckets()`` derives
-from the served trace's live-lane histogram, which ``buckets="auto"``
-reads back. The direct path (``infer``) runs eagerly. Not ported yet:
-SLO admission and its parking prefetch, the multi-resolution lattice,
-the exact-size policy (``buckets=None``) and the mesh.
+``VigSchedule`` at ``batch`` for the direct path, and a cell's first tick
+tunes one schedule per configured bucket at that size (before any
+capture), whose candidates include the ``cuda`` kernel with both of its
+merges. The tuner's host-keyed JSON cache (``tuner_path``) makes a later
+engine tune nothing, and also keeps the bucket set that
+``retune_buckets()`` derives from the served trace's live-lane histogram,
+which ``buckets="auto"`` reads back. The direct path (``infer``) runs
+eagerly. Not ported: the mesh (``_tick_width`` is the bucket).
 """
 
 from __future__ import annotations
@@ -69,10 +95,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.builder import degraded_spec, fallback_chain
+from repro_torch.core.builder import degraded_spec, fallback_chain, get_builder
 from repro_torch.core.digc import gate_reads
 from repro_torch.core.faults import FaultError, FaultInfo
-from repro_torch.core.state import FIELDS, DigcState
+from repro_torch.core.state import FIELDS, DigcState, prefetch_park_rows
 from repro_torch.core.tuner import DigcTuner, VigSchedule, optimal_bucket_set
 from repro_torch.device import resolve_device
 from repro_torch.kernels import add_launch_counts, uncounted_launches
@@ -89,7 +115,9 @@ from repro_torch.models.vig import (
 class VigRequest:
     """One image inference request. ``tenant`` names the stream it belongs
     to (consecutive requests of a tenant share a slot); ``tenant=None``
-    marks a one-shot request whose slot is freed after its tick."""
+    marks a one-shot request whose slot is freed after its tick.
+    ``tclass`` is the tenant class: the key into a per-class ``slo_ms``
+    dict (inert otherwise)."""
 
     uid: int
     image: np.ndarray  # (H, W, C) float
@@ -97,14 +125,15 @@ class VigRequest:
     logits: Optional[np.ndarray] = None
     done: bool = False
     fault: Optional[FaultInfo] = None  # set when the request was quarantined
+    tclass: str = "default"
 
 
 @dataclasses.dataclass
 class _Captured:
-    """One bucket's forward captured as a CUDA graph, with its static
-    buffers: replaying reads ``images`` and ``state`` and writes
-    ``logits`` and ``new_state``; ``tally`` is the kernel launches one
-    replay makes."""
+    """One cell's forward captured as a CUDA graph, with its static
+    buffers: replaying reads ``images`` (and a padded cell's ``mask``)
+    and ``state`` and writes ``logits`` and ``new_state``; ``tally`` is the
+    kernel launches one replay makes."""
 
     graph: Any  # torch.cuda.CUDAGraph
     images: torch.Tensor
@@ -112,11 +141,12 @@ class _Captured:
     logits: torch.Tensor
     new_state: DigcState
     tally: dict
+    mask: Optional[torch.Tensor] = None
 
     def replay(self, state: DigcState):
-        """Copy the tick's rows into the static inputs (the images are
-        already there), replay, and return the static outputs, valid until
-        the next replay."""
+        """Copy the tick's rows into the static inputs (the images and the
+        mask are already there), replay, and return the static outputs,
+        valid until the next replay."""
         for key, static in self.state.entries.items():
             src = state.entries[key]
             for f in FIELDS:
@@ -142,13 +172,19 @@ class VigServeEngine:
     without a card; pass ``device="cpu"`` for the plain PyTorch path.
     ``digc_impl``: a builder name, a DigcSpec, a pre-tuned
     ``VigSchedule`` (applied to every bucket; nothing is tuned), or None
-    for ``cfg.digc_impl``. ``buckets``: a tuple, or "auto" for the bucket
+    for ``cfg.digc_impl``. ``buckets``: a tuple, None (one program per
+    exact active batch size, ``batch`` slots), or "auto" for the bucket
     set the tuner cache holds for this serving shape (the default ladder
-    capped at ``batch`` when it holds none). ``bucket_cap`` caps the
-    programs ``retune_buckets()`` may choose. ``park_capacity`` bounds the
-    evicted tenants whose state rows are parked (0: an evicted tenant
-    returns cold). ``mode`` is "jit" (bucket programs, captured on a card)
-    or "eager" (the request path raises, as in JAX).
+    capped at ``batch`` when it holds none). ``image_sizes``: the lattice's
+    image sizes (None: the config's size only, exact shapes). ``bucket_cap``
+    caps the programs ``retune_buckets()`` may choose. ``park_capacity``
+    bounds the evicted tenants whose state rows are parked (0: an evicted
+    tenant returns cold). ``mode`` is "jit" (cell programs, captured on a
+    card) or "eager" (the request path raises, as in JAX).
+
+    Admission: ``slo_ms`` (0, a scalar or ``{class: ms}``) arms the
+    scheduler, ``clock`` is its time source (None: ``time.monotonic``),
+    ``prefetch`` lets it upload parked rows ahead of their tick.
 
     Faults: ``fault_plan`` arms injection sites; ``guards`` arms the
     screens (finiteness, integrity tokens) and the deadline budget
@@ -160,12 +196,15 @@ class VigServeEngine:
 
     def __init__(self, cfg, params: dict, *, digc_impl=None, batch: int = 8,
                  autotune: bool = True, tuner_path=None, mode: str = "jit",
-                 buckets=DEFAULT_BUCKETS, bucket_cap: int = 4,
-                 on_compile: Optional[Callable[[int], None]] = None,
+                 buckets=DEFAULT_BUCKETS, image_sizes: Optional[tuple] = None,
+                 bucket_cap: int = 4,
+                 on_compile: Optional[Callable[[Any], None]] = None,
                  park_capacity: int = 8, fault_plan=None, guards: bool = True,
                  deadline_ms: Optional[float] = None,
                  deadline_strikes: int = 2, retry_attempts: int = 3,
-                 retry_backoff: float = 0.02, device="cuda"):
+                 retry_backoff: float = 0.02, slo_ms=0.0,
+                 clock: Optional[Callable[[], float]] = None,
+                 prefetch: bool = True, device="cuda"):
         if mode not in ("jit", "eager"):
             raise ValueError(f"mode must be 'jit' or 'eager', got {mode!r}")
         self.device = resolve_device(device)
@@ -176,16 +215,35 @@ class VigServeEngine:
         self.tuner_path = tuner_path
         self.bucket_cap = int(bucket_cap)
         self.tune_log: list[dict] = []  # DigcTuner.log of every tuning
-        if isinstance(buckets, str):
-            if buckets != "auto":
-                raise ValueError(
-                    f"buckets must be a tuple or 'auto': {buckets!r}")
-            buckets = self._auto_bucket_set(self.batch, tuner_path)
-        buckets = tuple(sorted(set(int(b) for b in buckets)))
-        if not buckets or buckets[0] < 1:
-            raise ValueError(f"buckets must be positive ints: {buckets!r}")
+        auto = isinstance(buckets, str)
+        if auto and buckets != "auto":
+            raise ValueError(
+                f"buckets must be a tuple, None, or 'auto': {buckets!r}")
+        if buckets is not None and not auto:
+            buckets = tuple(sorted(set(int(b) for b in buckets)))
+            if not buckets or buckets[0] < 1:
+                raise ValueError(f"buckets must be positive ints: {buckets!r}")
         self.spec = resolve_digc_spec(cfg, digc_impl)
-        vig_stage_plans(cfg, digc_impl)  # VigGridError at construction
+        # The lattice (DESIGN.md §13) is opt-in: without image_sizes the
+        # engine serves the config's size with the exact-shape contract.
+        # Each size's pyramid is screened here (VigGridError naming the
+        # stage and grid), not inside its first tick.
+        self._lattice = image_sizes is not None
+        if image_sizes is None:
+            image_sizes = (cfg.image_size,)
+        sizes = tuple(sorted(set(int(s) for s in image_sizes)))
+        if not sizes or sizes[0] < cfg.patch:
+            raise ValueError(
+                f"image_sizes must be >= patch={cfg.patch}: {image_sizes!r}")
+        for size in sizes:
+            if size % cfg.patch:
+                raise ValueError(
+                    f"image_sizes: {size} is not divisible by the model "
+                    f"patch size {cfg.patch}")
+            vig_stage_plans(cfg, digc_impl, grid=size // cfg.patch)
+        self.image_sizes = sizes
+        if auto:
+            buckets = self._auto_bucket_set(self.batch, tuner_path)
         # Only a user-provided schedule applies to every bucket: one that
         # warmup() tuned is a measurement at self.batch.
         self._user_schedule = isinstance(digc_impl, VigSchedule)
@@ -193,11 +251,15 @@ class VigServeEngine:
         self.tuned = None  # per-stage TuneResults once warmed up
         # direct path: batch size -> [program, DigcState]
         self._direct: dict[int, list] = {}
-        self._bucket_schedules: dict[int, VigSchedule] = {}
-        self._bucket_tuned: dict[int, list] = {}
+        # schedules, programs, captures and staging buffers are keyed by
+        # the cell (``_program_key``): the bare bucket on a single-size
+        # engine, (size, bucket) on the lattice, (size, bucket, "pad") for
+        # a padded cell.
+        self._bucket_schedules: dict[Any, VigSchedule] = {}
+        self._bucket_tuned: dict[Any, list] = {}
         self.params = _to_device(params, self.device)
         self.buckets = buckets
-        self.slots = max(buckets)
+        self.slots = max(buckets) if buckets is not None else self.batch
         self.on_compile = on_compile
         self.compile_count = 0
         self.requests_served = 0
@@ -206,8 +268,9 @@ class VigServeEngine:
         self._tenant_slot: dict[Any, int] = {}
         self._slot_last_tick = [0] * self.slots
         self._tick = 0
-        self._programs: dict[int, Callable] = {}
+        self._programs: dict[Any, Callable] = {}
         self.bucket_ticks: dict[int, int] = {}
+        self.cell_ticks: dict[tuple, int] = {}  # (size, bucket) -> ticks
         self.live_lanes = 0
         self.padded_lanes = 0
         self.lane_hist: dict[tuple, int] = {}  # (image size, live) -> ticks
@@ -215,13 +278,33 @@ class VigServeEngine:
         self.last_resets: list[int] = []
         self.last_restores: list[int] = []
         self.last_bucket: Optional[int] = None
-        # The canonical per-slot state, allocated on the first tick.
-        self._slot_state: Optional[DigcState] = None
-        # LRU parking: tenant -> its rows in host memory, oldest first.
+        self.last_cell: Optional[tuple] = None  # (size, bucket), last tick
+        # The canonical per-slot state of each image size, allocated on
+        # its first tick; ``_slot_state`` aliases the first size's.
+        self._slot_states: dict[int, DigcState] = {}
+        # LRU parking: tenant -> its rows in host memory ({size: rows} on
+        # the lattice), oldest first.
         self.park_capacity = int(park_capacity)
-        self._parked: dict[Any, DigcState] = {}
+        self._parked: dict[Any, Any] = {}
         self.park_hits = 0
         self.park_evictions = 0
+        # SLO-bounded admission (DESIGN.md §14).
+        self._slo_ms = (dict(slo_ms) if isinstance(slo_ms, dict)
+                        else float(slo_ms))
+        slo_vals = (self._slo_ms.values() if isinstance(self._slo_ms, dict)
+                    else [self._slo_ms])
+        if any(float(v) < 0 for v in slo_vals):
+            raise ValueError(f"slo_ms must be >= 0: {slo_ms!r}")
+        self._sched_active = any(float(v) > 0 for v in slo_vals)
+        self._clock = clock
+        self._enq_seq = 0  # submit order: the per-tenant FIFO anchor
+        self._next_deadline: Optional[float] = None
+        self.deferrals = 0  # ticks that waited instead of dispatching
+        # Parked rows uploaded ahead of the tick that binds them.
+        self._prefetch = bool(prefetch)
+        self._park_prefetch: dict[Any, tuple] = {}  # tenant -> (host, dev)
+        self.prefetch_issued = 0
+        self.prefetch_hits = 0
         # Stale-graph accounting, per (lane, entry), from graph_age deltas.
         self.graph_reuses = 0
         self.graph_rebuilds = 0
@@ -229,10 +312,11 @@ class VigServeEngine:
         self._drift_n = 0
         self.last_drift: dict[str, float] = {}  # entry key -> mean drift
         self.gate_reads = 0  # the reuse gate's device -> host reads
-        # CUDA-graph bucket programs (on a card): bucket -> _Captured, and
-        # bucket -> (pinned host, device) image buffers.
-        self._captured: dict[int, _Captured] = {}
-        self._staging: dict[int, tuple] = {}
+        # CUDA-graph cell programs (on a card): cell -> _Captured, and
+        # cell -> (pinned host, device) image and mask buffers.
+        self._captured: dict[Any, _Captured] = {}
+        self._staging: dict[Any, tuple] = {}
+        self._mask_staging: dict[Any, tuple] = {}
         self._graph_stream = None
         # Fault tolerance (DESIGN.md §11).
         self.fault_plan = fault_plan
@@ -250,10 +334,63 @@ class VigServeEngine:
         self.fallback_level = 0  # rungs descended on the ladder
         self.fault_log: list[FaultInfo] = []  # detected (not injected)
         self.last_quarantined: list[int] = []  # slots, last tick
-        self._row_tokens: dict[int, int] = {}  # slot -> checksum token
-        self._tokens_due: set[int] = set()  # slots written, not re-taken
+        # token key (``_token_key``) -> checksum token, and the (size,
+        # slot) rows written since their tokens were last taken.
+        self._row_tokens: dict[Any, int] = {}
+        self._tokens_due: set[tuple] = set()
         self._consecutive_misses = 0
-        self._program_ticks: dict[int, int] = {}  # bucket -> ticks served
+        self._program_ticks: dict[Any, int] = {}  # cell -> ticks served
+
+    # -- the lattice (DESIGN.md §13) --------------------------------------
+
+    @property
+    def _slot_state(self) -> Optional[DigcState]:
+        """The first image size's canonical slot state (the single-size
+        engine's only one)."""
+        return self._slot_states.get(self.image_sizes[0])
+
+    @_slot_state.setter
+    def _slot_state(self, value: Optional[DigcState]) -> None:
+        if value is None:
+            self._slot_states.pop(self.image_sizes[0], None)
+        else:
+            self._slot_states[self.image_sizes[0]] = value
+
+    def _multi_size(self) -> bool:
+        return len(self.image_sizes) > 1
+
+    def _req_size(self, req: VigRequest) -> int:
+        return getattr(req, "_serve_size", self.image_sizes[0])
+
+    def _req_mask(self, req: VigRequest) -> Optional[np.ndarray]:
+        return getattr(req, "_serve_mask", None)
+
+    def _cell_of(self, req: VigRequest) -> tuple:
+        """The (size, masked) cell a request resolved to at submit."""
+        return (self._req_size(req), self._req_mask(req) is not None)
+
+    def _program_key(self, bucket: int, size: Optional[int] = None,
+                     masked: bool = False):
+        """The cell's key for programs, captures, ticks and ``on_compile``:
+        the bare bucket on a single-size engine, (size, bucket) on the
+        lattice, (size, bucket, "pad") for a padded cell."""
+        size = self.image_sizes[0] if size is None else size
+        if masked:
+            return (size, bucket, "pad")
+        if not self._multi_size():
+            return bucket
+        return (size, bucket)
+
+    def _tick_width(self, bucket: int) -> int:
+        """The batch width of a tick's program: the bucket (the JAX
+        engine widens it to a multiple of a sharded batch axis; the mesh
+        is not ported)."""
+        return bucket
+
+    def _token_key(self, size: int, slot: int):
+        """Integrity tokens are per (size, slot): the bare slot on a
+        single-size engine, "{size}:{slot}" on the lattice."""
+        return slot if not self._multi_size() else f"{size}:{slot}"
 
     # -- tuning ---------------------------------------------------------
 
@@ -262,11 +399,13 @@ class VigServeEngine:
         tuner.log = self.tune_log
         return tuner
 
-    def _stage_rows(self) -> list[dict]:
-        """One workload row per stage at the native size: pooled stages
-        tune their real (N, M) pair, later pyramid stages their own."""
+    def _stage_rows(self, size: Optional[int] = None) -> list[dict]:
+        """One workload row per stage at ``size`` (default: the native
+        size): pooled stages tune their real (N, M) pair, later pyramid
+        stages their own, so a tuner key covers both lattice dimensions."""
+        grid = None if size is None else size // self.cfg.patch
         rows: dict[int, dict] = {}
-        for row in count_digc_work(self.cfg):
+        for row in count_digc_work(self.cfg, grid=grid):
             rows.setdefault(row["stage"], row)
         return [rows[si] for si in sorted(rows)]
 
@@ -275,8 +414,8 @@ class VigServeEngine:
 
     def warmup(self, rng_seed: int = 0):
         """Tune a per-stage schedule at ``batch`` for the direct path
-        (blocked tier only). The request path tunes per bucket, on a
-        bucket's first tick. A no-op when a ``VigSchedule`` was given at
+        (blocked tier only). The request path tunes per cell, on a cell's
+        first tick. A no-op when a ``VigSchedule`` was given at
         construction or one is already tuned."""
         if not self._tunes() or self.schedule is not None:
             return None
@@ -292,44 +431,50 @@ class VigServeEngine:
     def _impl_choice(self):
         return self.schedule if self.schedule is not None else self.spec
 
-    def _bucket_choice(self, bucket: int):
-        """The DIGC spec or schedule of one bucket's program. The tuner's
-        workload key holds the batch size, so each bucket has its own
-        schedule (never warmup()'s, measured at ``batch``); a
-        user-provided schedule applies everywhere. The first miss tunes
-        every configured bucket at once: a serving replica prepares them
+    def _bucket_choice(self, bucket: int, size: Optional[int] = None):
+        """The DIGC spec or schedule of one (B, N) cell's program. The
+        tuner's workload key holds the batch size and the node counts
+        (``_stage_rows(size)``), so each cell has its own schedule (never
+        warmup()'s, measured at ``batch``); a user-provided schedule
+        applies everywhere. The first miss at a size tunes every
+        configured bucket there at once: a serving replica prepares them
         all anyway, and the cache makes later engines free."""
         if self._user_schedule:
             return self.schedule
         if not self._tunes():
             return self.spec
-        if bucket not in self._bucket_schedules:
-            targets = set(self.buckets) | {bucket}
+        size = self.image_sizes[0] if size is None else size
+        skey = bucket if not self._multi_size() else (size, bucket)
+        if skey not in self._bucket_schedules:
+            targets = {bucket} | set(self.buckets or ())
             schedules, tuned = self._tuner().tune_bucket_schedules(
-                self._stage_rows(), spec=self.spec, buckets=sorted(targets))
-            self._bucket_schedules.update(schedules)
-            self._bucket_tuned.update(tuned)
-        return self._bucket_schedules[bucket]
+                self._stage_rows(size), spec=self.spec,
+                buckets=sorted(targets))
+            for b in schedules:
+                key = b if not self._multi_size() else (size, b)
+                self._bucket_schedules[key] = schedules[b]
+                self._bucket_tuned[key] = tuned[b]
+        return self._bucket_schedules[skey]
 
     def retune_buckets(self, max_programs: Optional[int] = None,
                        force: bool = True) -> tuple:
         """Re-derive the bucket set from the live-lane histogram of the
         served trace (``lane_hist``) with ``core.tuner.optimal_bucket_set``,
-        persisted per host in the tuner cache, so the next engine built
-        with ``buckets="auto"`` and the same cache starts on it. Takes
-        effect live: dropped buckets keep their programs but are never
-        picked again; new ones are prepared on first use."""
+        each size weighted by its cost (size / patch)^2, persisted per host
+        in the tuner cache, so the next engine built with
+        ``buckets="auto"`` and the same cache starts on it. Takes effect
+        live: dropped buckets keep their programs but are never picked
+        again; new ones are prepared on first use."""
         hist: dict[int, dict[int, int]] = {}
         for (sz, live), ticks in self.lane_hist.items():
             per = hist.setdefault(sz, {})
             per[live] = per.get(live, 0) + ticks
         cap = self.bucket_cap if max_programs is None else int(max_programs)
-        size = self.cfg.image_size
-        costs = {size: (size // self.cfg.patch) ** 2}
+        costs = {s: (s // self.cfg.patch) ** 2 for s in self.image_sizes}
         if self.tuner_path is not None:
             new = self._tuner().tune_bucket_set(
                 hist, slots=self.slots, max_programs=cap, costs=costs,
-                sizes=(size,), force=force)
+                sizes=self.image_sizes, force=force)
         else:
             new = optimal_bucket_set(hist, slots=self.slots,
                                      max_programs=cap, costs=costs)
@@ -338,11 +483,11 @@ class VigServeEngine:
 
     def _auto_bucket_set(self, slots: int, tuner_path) -> tuple:
         """``buckets="auto"``: the persisted bucket set of this (slots,
-        size, cap) serving shape when the tuner cache holds one, else
+        sizes, cap) serving shape when the tuner cache holds one, else
         the default ladder capped at ``slots``."""
         if tuner_path is not None:
             found = self._tuner().lookup_bucket_set(
-                slots=slots, sizes=(self.cfg.image_size,),
+                slots=slots, sizes=self.image_sizes,
                 max_programs=self.bucket_cap)
             if found is not None:
                 return found
@@ -369,75 +514,290 @@ class VigServeEngine:
     # -- multi-tenant request path --------------------------------------
 
     def submit(self, req: VigRequest) -> None:
-        """Enqueue a request for the next tick. A malformed image fails
-        here, at the submitter, with an error naming the field."""
+        """Enqueue a request. A malformed image fails here, at the
+        submitter, with an error naming the field. On the lattice an
+        image of a configured size serves its own cell unmasked, and a
+        ragged one is padded up to the smallest size that fits with a
+        live-node mask."""
         img = np.asarray(req.image)
-        want = (self.cfg.image_size, self.cfg.image_size, self.cfg.in_chans)
-        if img.shape != want:
+        if not self._lattice:
+            want = (self.cfg.image_size, self.cfg.image_size,
+                    self.cfg.in_chans)
+            if img.shape != want:
+                raise ValueError(
+                    f"VigRequest.image (uid={req.uid}): shape {img.shape} "
+                    f"does not match the engine config {want} (image_size, "
+                    "image_size, in_chans)"
+                )
+            _check_float(req, img)
+            req._serve_size, req._serve_mask = self.image_sizes[0], None
+            self._enqueue(req)
+            return
+        if img.ndim != 3:
             raise ValueError(
-                f"VigRequest.image (uid={req.uid}): shape {img.shape} does "
-                f"not match the engine config {want} (image_size, "
-                "image_size, in_chans)"
+                f"VigRequest.image (uid={req.uid}): expected a 3-d "
+                f"(H, W, C) array, got ndim={img.ndim} shape={img.shape}"
             )
-        if not np.issubdtype(img.dtype, np.floating):
+        h, w, c = img.shape
+        if c != self.cfg.in_chans:
             raise ValueError(
-                f"VigRequest.image (uid={req.uid}): dtype {img.dtype} is "
-                "not a float dtype; pass float32 pixel features"
+                f"VigRequest.image (uid={req.uid}): {c} channels does "
+                f"not match the engine config in_chans={self.cfg.in_chans}"
             )
+        if h != w:
+            raise ValueError(
+                f"VigRequest.image (uid={req.uid}): non-square image "
+                f"{img.shape}; the patch lattice needs H == W"
+            )
+        _check_float(req, img)
+        if h in self.image_sizes:
+            req._serve_size, req._serve_mask = h, None
+            self._enqueue(req)
+            return
+        if h % self.cfg.patch:
+            raise ValueError(
+                f"VigRequest.image (uid={req.uid}): size {h} is not "
+                f"divisible by the model patch size {self.cfg.patch}"
+            )
+        fits = [s for s in self.image_sizes if s >= h]
+        if not fits:
+            raise ValueError(
+                f"VigRequest.image (uid={req.uid}): size {h} exceeds "
+                f"the largest configured image size "
+                f"{self.image_sizes[-1]} (image_sizes={self.image_sizes})"
+            )
+        size = fits[0]
+        self._check_pad_capable(req, h)
+        g, g0 = size // self.cfg.patch, h // self.cfg.patch
+        mask2d = np.zeros((g, g), bool)
+        mask2d[:g0, :g0] = True
+        req._serve_size, req._serve_mask = size, mask2d.reshape(-1)
+        self._enqueue(req)
+
+    def _check_pad_capable(self, req: VigRequest, h: int) -> None:
+        """Pad nodes need a single-stage r = 1 model (pooling and
+        downsampling would mix pad and live rows) and a pad-capable DIGC
+        tier (``GraphBuilder.supports_pad``)."""
+        cfg = self.cfg
+        if len(cfg.depths) > 1 or any(
+                r > 1 for r in cfg.reduce_ratios[:len(cfg.depths)]):
+            raise ValueError(
+                f"VigRequest.image (uid={req.uid}): size {h} needs "
+                f"pad nodes to reach the {self.image_sizes} cell set, "
+                f"but model {cfg.name!r} has a multi-stage/pooled "
+                f"pyramid (depths={cfg.depths}, "
+                f"reduce_ratios={cfg.reduce_ratios}) that would mix pad "
+                "and live rows — submit an exact configured size, or "
+                "add this size to image_sizes"
+            )
+        impl = (self.schedule.spec_for(0).impl if self._user_schedule
+                else self.spec.impl)
+        if not get_builder(impl).supports_pad:
+            raise ValueError(
+                f"VigRequest.image (uid={req.uid}): size {h} needs pad "
+                f"nodes, but DIGC impl {impl!r} does not support "
+                "pad-node masking (m_valid); submit an exact configured "
+                "size, or serve a pad-capable tier"
+            )
+
+    # -- SLO-bounded admission (DESIGN.md §14) ----------------------------
+
+    def _now(self) -> float:
+        """Scheduler time: the injected clock (a ``VirtualClock`` or any
+        zero-argument callable) or ``time.monotonic``."""
+        if self._clock is None:
+            return time.monotonic()
+        now = getattr(self._clock, "now", None)
+        return now() if now is not None else self._clock()
+
+    def _slo_s(self, req: VigRequest) -> float:
+        """The request's admission budget in seconds: its class's entry of
+        a dict ``slo_ms`` (else "default", else 0: dispatch now), or the
+        scalar."""
+        if isinstance(self._slo_ms, dict):
+            ms = self._slo_ms.get(req.tclass, self._slo_ms.get("default", 0.0))
+        else:
+            ms = self._slo_ms
+        return float(ms) / 1e3
+
+    def _tkey(self, req: VigRequest):
+        return req.tenant if req.tenant is not None else ("req", req.uid)
+
+    def _enqueue(self, req: VigRequest) -> None:
+        """Queue a validated request, stamped with its arrival time and
+        submit order (the deadline and FIFO anchors), and let the parking
+        prefetcher look at the new queue."""
+        req._enq_t = self._now()
+        req._enq_seq = self._enq_seq
+        self._enq_seq += 1
         self.queue.append(req)
+        self._prefetch_parked()
+
+    def _select_cell(self, peek: bool = False):
+        """The (size, masked) cell the next tick serves and its eligible
+        requests, or (None, None) to defer.
+
+        With the scheduler off: the head of the queue's cell and every
+        queued request of that cell. With it on, each request has a
+        deadline (arrival + its class budget); a tenant's effective
+        deadline is the least over its queued requests, carried by its
+        head request. A cell is ripe when its earliest deadline has come
+        or it holds a full slot width of tenants; the ripe cell with the
+        earliest (deadline, submit order) dispatches, and only tenants'
+        head requests are eligible, so each tenant is served in order.
+        With no ripe cell the tick defers and ``_next_deadline`` records
+        when the first cell ripens. ``peek=True`` never defers: it names
+        the cell that will dispatch next (what the prefetcher uploads)."""
+        if not self.queue:
+            return None, None
+        if not self._sched_active:
+            cell = self._cell_of(self.queue[0])
+            return cell, [r for r in self.queue if self._cell_of(r) == cell]
+        heads: dict[Any, VigRequest] = {}
+        eff: dict[Any, float] = {}
+        for r in self.queue:
+            tk = self._tkey(r)
+            heads.setdefault(tk, r)
+            dl = r._enq_t + self._slo_s(r)
+            eff[tk] = min(eff.get(tk, dl), dl)
+        cells: dict[tuple, list] = {}  # cell -> [deadline, tenants, seq]
+        for tk, head in heads.items():
+            info = cells.setdefault(self._cell_of(head),
+                                    [float("inf"), 0, head._enq_seq])
+            info[0] = min(info[0], eff[tk])
+            info[1] += 1
+            info[2] = min(info[2], head._enq_seq)
+        now = self._now()
+        ripe = [c for c, (dl, nt, _) in cells.items()
+                if now >= dl - 1e-9 or nt >= self.slots]
+        if not ripe:
+            if not peek:
+                self._next_deadline = min(i[0] for i in cells.values())
+                return None, None
+            ripe = list(cells)
+        cell = min(ripe, key=lambda c: (cells[c][0], cells[c][2]))
+        head_ids = {id(r) for r in heads.values()}
+        eligible = [r for r in self.queue
+                    if id(r) in head_ids and self._cell_of(r) == cell]
+        if not peek:
+            self._next_deadline = None
+        return cell, eligible
+
+    def next_deadline(self) -> Optional[float]:
+        """The earliest admission deadline among queued requests, or None
+        (empty queue, or the scheduler off): a serving loop wakes then
+        even with no new arrival (``serve.sched.replay`` does)."""
+        if not self._sched_active or not self.queue:
+            return None
+        return min(r._enq_t + self._slo_s(r) for r in self.queue)
+
+    def _advance_to_deadline(self) -> None:
+        """After a deferred tick, move time to the recorded deadline: a
+        clock with ``advance_to`` (``VirtualClock``) jumps; the wall clock
+        sleeps the rest."""
+        target = self._next_deadline
+        if target is None:
+            return
+        adv = getattr(self._clock, "advance_to", None)
+        if adv is not None:
+            adv(target)
+            return
+        delta = target - self._now()
+        if delta > 0:
+            time.sleep(min(delta, 60.0))
+
+    def _prefetch_parked(self) -> None:
+        """Start the next tick's parking restores now: a parked, unslotted
+        tenant among the requests the queue names for the next tick gets
+        its rows uploaded (``prefetch_park_rows``: from pinned memory,
+        without blocking, on a card). A placement hint only: ``_unpark``
+        still passes the ``park.restore`` fault site and the screens, and
+        binds the uploaded copy only when the restored host object is the
+        one it was uploaded from."""
+        if not self._prefetch or not self._parked or not self.queue:
+            return
+        _, eligible = self._select_cell(peek=True)
+        for req in (eligible or [])[:self.slots]:
+            tk = self._tkey(req)
+            if (tk in self._parked and tk not in self._tenant_slot
+                    and tk not in self._park_prefetch):
+                host = self._parked[tk]
+                self._park_prefetch[tk] = (
+                    host, prefetch_park_rows(host, self.device))
+                self.prefetch_issued += 1
+
+    # -- programs -------------------------------------------------------
 
     def bucket_for(self, active: int) -> int:
-        """Smallest bucket that fits ``active`` slots."""
+        """Smallest bucket that fits ``active`` slots; the count itself
+        under the exact-size policy."""
         if not 1 <= active <= self.slots:
             raise ValueError(f"active={active} outside 1..{self.slots}")
+        if self.buckets is None:
+            return active
         return next(b for b in self.buckets if b >= active)
 
-    def _forward(self, choice) -> Callable:
-        """A prepared forward: (images (B, H, W, C), state) -> (logits,
-        new state) through the DIGC spec or schedule ``choice``."""
+    def _forward(self, choice, masked: bool = False) -> Callable:
+        """A prepared forward through the DIGC spec or schedule ``choice``:
+        (images (B, H, W, C), state) -> (logits, new state), or with
+        ``masked`` (images, mask (B, N) bool, state)."""
         params, cfg = self.params, self.cfg
 
-        def program(images: torch.Tensor, state: DigcState):
-            with torch.inference_mode():
-                return vig_forward(params, images, cfg, digc_impl=choice,
-                                   state=state)
+        if masked:
+            def program(images: torch.Tensor, mask: torch.Tensor,
+                        state: DigcState):
+                with torch.inference_mode():
+                    return vig_forward(params, images, cfg, digc_impl=choice,
+                                       state=state, valid_mask=mask)
+        else:
+            def program(images: torch.Tensor, state: DigcState):
+                with torch.inference_mode():
+                    return vig_forward(params, images, cfg, digc_impl=choice,
+                                       state=state)
 
         return program
 
-    def _choice_for(self, bucket: int):
-        """The bucket's DIGC spec or schedule through the degradation
-        ladder: the tuned per-bucket choice at level 0, else the next tier
+    def _choice_for(self, bucket: int, size: Optional[int] = None):
+        """The cell's DIGC spec or schedule through the degradation
+        ladder: the tuned per-cell choice at level 0, else the next tier
         of ``fallback_chain`` with the common spec fields only."""
         if self.fallback_level == 0:
-            return self._bucket_choice(bucket)
+            return self._bucket_choice(bucket, size)
         chain = fallback_chain(self._ladder_base_impl())
         return degraded_spec(self.spec, chain[self.fallback_level - 1])
 
     def _ladder_base_impl(self) -> str:
         return _stage0_impl(self._impl_choice())
 
-    def _build_program(self, bucket: int) -> Callable:
-        """One bucket's program: (images (bucket, H, W, C), state) ->
-        (logits, new state). Passes the ``program.build`` fault site."""
-        choice = self._choice_for(bucket)
+    def _build_program(self, bucket: int, size: Optional[int] = None,
+                       masked: bool = False) -> Callable:
+        """One cell's program: (images (bucket, H, W, C)[, mask], state)
+        -> (logits, new state). Passes the ``program.build`` fault site."""
+        choice = self._choice_for(bucket, size)
         self._fire("program.build", bucket=bucket, impl=_stage0_impl(choice))
-        return self._forward(choice)
+        return self._forward(choice, masked)
 
-    def _program_for(self, bucket: int) -> Callable:
+    def _program_for(self, bucket: int, size: Optional[int] = None,
+                     masked: bool = False) -> Callable:
         """Program lookup with recovery: a failing build is retried, and a
         tier that keeps failing walks the degradation ladder until a rung
         builds; an exhausted ladder re-raises. The tuned choice is
         resolved first, outside the retry and the ladder (where JAX tunes
         inside its build)."""
-        while bucket not in self._programs:
+        key = self._program_key(bucket, size, masked)
+        single = key == bucket  # the one-argument build of a single size
+        while key not in self._programs:
             if self.fallback_level == 0:
                 # Tuning builds and times the kernels on the card: a
                 # kernel that fails there raises out of step(), never
                 # into the ladder below (the ladder steps down tiers, it
                 # does not stand in for a broken kernel).
-                self._bucket_choice(bucket)
+                self._bucket_choice(bucket, size)
             try:
-                prog = self._retry(lambda: self._build_program(bucket))
+                prog = self._retry(
+                    (lambda: self._build_program(bucket)) if single else
+                    (lambda: self._build_program(bucket, size=size,
+                                                 masked=masked)))
             except Exception as e:  # noqa: BLE001 (the ladder's boundary)
                 info = (e.info if isinstance(e, FaultError) else FaultInfo(
                     kind="compile_failure", site="program.build",
@@ -448,50 +808,61 @@ class VigServeEngine:
                         detail=f"{info.detail}; descending ladder")):
                     raise
                 continue
-            self._programs[bucket] = prog
+            self._programs[key] = prog
             if not self._captures():
-                self._count_compile(bucket)
-        return self._programs[bucket]
+                self._count_compile(key)
+        return self._programs[key]
 
-    def _count_compile(self, bucket: int) -> None:
+    def _count_compile(self, key) -> None:
         self.compile_count += 1
         if self.on_compile is not None:
-            self.on_compile(bucket)
+            self.on_compile(key)
 
-    # -- CUDA-graph bucket programs -------------------------------------
+    # -- CUDA-graph cell programs ---------------------------------------
 
     def _captures(self) -> bool:
-        """Bucket programs are captured as CUDA graphs on a card; on the
-        CPU there is nothing to capture and they run eagerly."""
+        """Cell programs are captured as CUDA graphs on a card; on the CPU
+        there is nothing to capture and they run eagerly."""
         return self.device.type == "cuda"
 
-    def _upload(self, bucket: int, imgs: list) -> torch.Tensor:
-        """The tick's bucket batch (bucket, H, W, C) on the device. On a
-        card the images are stacked into the bucket's pinned staging
-        buffer and copied without blocking into its device image buffer,
-        the captured program's static input."""
+    def _upload(self, key, imgs: list, masks: Optional[list] = None):
+        """The tick's batch (B, H, W, C) and, for a padded cell, its live
+        mask (B, N) on the device. On a card each is stacked into the
+        cell's pinned staging buffer and copied without blocking into its
+        device buffer, the captured program's static input: ticks of two
+        ragged sizes share a padded cell, so the mask is an input too."""
         if self.device.type != "cuda":
-            return torch.from_numpy(np.stack(imgs))
-        if bucket not in self._staging:
-            shape = (bucket,) + imgs[0].shape
-            self._staging[bucket] = (
-                torch.empty(shape, dtype=torch.float32, pin_memory=True),
-                torch.empty(shape, dtype=torch.float32, device=self.device))
-        host, dev = self._staging[bucket]
-        np.stack(imgs, out=host.numpy())
+            mask = None if masks is None else torch.from_numpy(np.stack(masks))
+            return torch.from_numpy(np.stack(imgs)), mask
+        images = self._stage(self._staging, key, imgs, torch.float32)
+        mask = (None if masks is None else
+                self._stage(self._mask_staging, key, masks, torch.bool))
+        return images, mask
+
+    def _stage(self, buffers: dict, key, rows: list, dtype) -> torch.Tensor:
+        if key not in buffers:
+            shape = (len(rows),) + rows[0].shape
+            buffers[key] = (
+                torch.empty(shape, dtype=dtype, pin_memory=True),
+                torch.empty(shape, dtype=dtype, device=self.device))
+        host, dev = buffers[key]
+        np.stack(rows, out=host.numpy())
         dev.copy_(host, non_blocking=True)
         return dev
 
-    def _serve(self, bucket: int, program: Callable, images: torch.Tensor,
-               bucket_state: DigcState):
-        """Run the bucket's program: eagerly on the CPU; on a card, replay
+    def _serve(self, key, program: Callable, images: torch.Tensor,
+               bucket_state: DigcState, mask: Optional[torch.Tensor] = None):
+        """Run the cell's program: eagerly on the CPU; on a card, replay
         its captured graph, or on its first tick serve it eagerly on the
         capture stream (the capture's warm-up: cuBLAS handles, the kernel
         library, the kernels' shared-memory attributes) and capture it
-        there from ``images`` and ``bucket_state`` as static inputs."""
+        there from ``images``, ``mask`` and ``bucket_state`` as static
+        inputs."""
+        args = ((images, bucket_state) if mask is None
+                else (images, mask, bucket_state))
         if not self._captures():
-            return program(images, bucket_state)
-        cap = self._captured.get(bucket)
+            return program(*args)
+        cap = self._captured.get(key)
         if cap is not None:
             return cap.replay(bucket_state)
         if self._graph_stream is None:
@@ -500,69 +871,90 @@ class VigServeEngine:
         current = torch.cuda.current_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = program(images, bucket_state)
+            out = program(*args)
         graph = torch.cuda.CUDAGraph()
         with uncounted_launches() as tally:
             with torch.cuda.graph(graph, stream=side):
-                logits, new_state = program(images, bucket_state)
+                logits, new_state = program(*args)
         current.wait_stream(side)
-        self._captured[bucket] = _Captured(
+        self._captured[key] = _Captured(
             graph=graph, images=images, state=bucket_state, logits=logits,
-            new_state=new_state, tally=tally)
-        self._count_compile(bucket)
+            new_state=new_state, tally=tally, mask=mask)
+        self._count_compile(key)
         return out
 
-    def _tkey(self, req: VigRequest):
-        return req.tenant if req.tenant is not None else ("req", req.uid)
+    # -- slot state -----------------------------------------------------
 
-    def _ensure_slot_state(self) -> DigcState:
-        """The canonical per-slot state, allocated from the choice the
-        programs resolve: a user-provided schedule's per-stage specs, else
-        the engine spec (tuned schedules change no entry shape)."""
-        if self._slot_state is None:
+    def _ensure_slot_state(self, size: Optional[int] = None) -> DigcState:
+        """The canonical per-slot state of ``size`` (default: the first
+        size), sized by that size's stage plans and allocated from the
+        choice the programs resolve: a user-provided schedule's per-stage
+        specs, else the engine spec (tuned schedules change no entry
+        shape)."""
+        size = self.image_sizes[0] if size is None else size
+        if size not in self._slot_states:
             choice = self.schedule if self._user_schedule else self.spec
-            self._slot_state = init_vig_state(
+            self._slot_states[size] = init_vig_state(
                 self.cfg, self.slots, choice, per_slot=True,
-                device=self.device)
-        return self._slot_state
+                grid=size // self.cfg.patch, device=self.device)
+        return self._slot_states[size]
+
+    def _reset_rows_all(self, slots) -> None:
+        """Cold-reset ``slots``' rows at every allocated size (a slot's
+        occupant changes for every resolution at once); their tokens fall
+        due."""
+        for size, st in self._slot_states.items():
+            self._slot_states[size] = st.reset_rows(list(slots))
+        self._refresh_tokens(slots)
 
     def release(self, tenant: Any) -> None:
         """Tenant disconnect: free its slot and cold-reset the rows, so the
         next occupant cannot warm-start from them. Its parked copy (if
         any) goes too: a disconnect, unlike an eviction, does not park."""
         self._parked.pop(tenant, None)
+        self._park_prefetch.pop(tenant, None)
         slot = self._tenant_slot.pop(tenant, None)
         if slot is None:
             return
         self.slot_tenant[slot] = None
-        if self._slot_state is not None:
+        if self._slot_states:
             self._reset_rows_all([slot])
 
     def _park(self, tenant: Any, slot: int) -> None:
-        """Copy an evicted tenant's rows to host memory (pinned on a card)
-        so a later re-admit restores them warm; beyond ``park_capacity``
-        the oldest parked copy is dropped."""
-        if self.park_capacity <= 0 or self._slot_state is None:
+        """Copy an evicted tenant's rows at every allocated size to host
+        memory (pinned on a card) so a later re-admit restores them warm;
+        beyond ``park_capacity`` the oldest parked copy is dropped. The
+        lattice parks ``{size: rows}``, a single-size engine the rows."""
+        if self.park_capacity <= 0 or not self._slot_states:
             return
-        host = self._slot_state.take_rows([slot]).to(
-            "cpu", pin=self.device.type == "cuda")
+        pin = self.device.type == "cuda"
+        host = {size: st.take_rows([slot]).to("cpu", pin=pin)
+                for size, st in self._slot_states.items()}
         self._parked.pop(tenant, None)  # re-insert = most recent
-        self._parked[tenant] = host
+        self._park_prefetch.pop(tenant, None)  # an upload of older rows
+        self._parked[tenant] = (host if self._multi_size()
+                                else host[self.image_sizes[0]])
         while len(self._parked) > self.park_capacity:
-            del self._parked[next(iter(self._parked))]
+            oldest = next(iter(self._parked))
+            del self._parked[oldest]
+            self._park_prefetch.pop(oldest, None)
             self.park_evictions += 1
 
     def _unpark(self, tenant: Any, slot: int) -> bool:
         """Restore a parked tenant's rows into its new slot; False (the
         caller cold-resets) when nothing is parked. Only row fields are
-        restored: ``step`` stays the canonical entry's.
+        restored: ``step`` stays the canonical entry's. Sizes allocated
+        since the park are reset (the copy holds no rows for them).
 
         The restore passes the ``park.restore`` fault site: a transient
         error is retried with backoff; ``None`` where a parked copy
         existed is a parking-store loss, counted, and the tenant
-        re-admits cold."""
+        re-admits cold. An upload the prefetcher made of the same host
+        rows is bound in place of a new copy."""
         had_copy = tenant in self._parked
         host = self._parked.pop(tenant, None)
+        prefetched = self._park_prefetch.pop(tenant, None)
+        orig = host
         if host is not None:
             try:
                 host = self._retry(lambda: self._fire(
@@ -578,12 +970,20 @@ class VigServeEngine:
                     tick=self._tick,
                     detail="parked rows unrecoverable; re-admitting cold"))
             return False
-        state = self._ensure_slot_state()
-        self._slot_state = DigcState(entries={
-            k: dataclasses.replace(e.put_rows(host.entries[k], [slot]),
-                                   step=e.step)
-            for k, e in state.entries.items()
-        })
+        if prefetched is not None and host is orig:
+            host = prefetched[1]
+            self.prefetch_hits += 1
+        per_size = host if self._multi_size() else {self.image_sizes[0]: host}
+        for size, st in self._slot_states.items():
+            if size not in per_size:
+                self._slot_states[size] = st.reset_rows([slot])
+        for size, rows in per_size.items():
+            state = self._ensure_slot_state(size)
+            self._slot_states[size] = DigcState(entries={
+                k: dataclasses.replace(e.put_rows(rows.entries[k], [slot]),
+                                       step=e.step)
+                for k, e in state.entries.items()
+            })
         self.park_hits += 1
         self._refresh_tokens([slot])
         return True
@@ -610,7 +1010,7 @@ class VigServeEngine:
         if self._unpark(tenant_key, slot):
             self.last_restores.append(slot)
         else:
-            if self._slot_state is not None:
+            if self._slot_states:
                 self._reset_rows_all([slot])
             self.last_resets.append(slot)
         return slot
@@ -639,34 +1039,40 @@ class VigServeEngine:
                     time.sleep(self.retry_backoff * (2 ** attempt))
         raise last
 
-    def _refresh_tokens(self, slots) -> None:
-        """Mark ``slots``' rows as written by the engine (admission reset,
-        restore, quarantine, corruption recovery): their integrity tokens
-        are re-taken at the next flush, which comes before any screen
-        reads them, so a later mismatch is an unsanctioned mutation."""
+    def _refresh_tokens(self, slots, size: Optional[int] = None) -> None:
+        """Mark ``slots``' rows at ``size`` (default: every allocated size)
+        as written by the engine (admission reset, restore, quarantine,
+        corruption recovery): their integrity tokens are re-taken at the
+        next flush, which comes before any screen reads them, so a later
+        mismatch is an unsanctioned mutation."""
         if self.guards:
-            self._tokens_due.update(slots)
+            sizes = self._slot_states if size is None else (size,)
+            self._tokens_due.update((sz, s) for sz in sizes for s in slots)
 
-    def _flush_tokens(self) -> None:
-        """Re-take now the tokens of the rows written since the last
-        flush: one device -> host pull."""
-        if self._tokens_due and self._slot_state is not None:
-            self._adopt_tokens(sorted(self._tokens_due),
-                               self._slot_state.row_checks()[1].cpu())
+    def _due(self, size: int) -> list:
+        return sorted(s for sz, s in self._tokens_due if sz == size)
 
-    def _adopt_tokens(self, slots: list, sums: torch.Tensor) -> None:
-        """Take ``slots``' checksums from ``sums`` (every row's, on the
-        host) as their integrity tokens."""
+    def _flush_tokens(self, size: int) -> None:
+        """Re-take now the tokens of ``size``'s rows written since the
+        last flush: one device -> host pull."""
+        due = self._due(size)
+        if due and size in self._slot_states:
+            self._adopt_tokens(size, due,
+                               self._slot_states[size].row_checks()[1].cpu())
+
+    def _adopt_tokens(self, size: int, slots: list, sums: torch.Tensor) -> None:
+        """Take ``slots``' checksums at ``size`` from ``sums`` (every
+        row's, on the host) as their integrity tokens."""
         for slot in slots:
-            self._row_tokens[slot] = int(sums[slot])
-        self._tokens_due.difference_update(slots)
+            self._row_tokens[self._token_key(size, slot)] = int(sums[slot])
+            self._tokens_due.discard((size, slot))
 
-    def _screen(self, images: torch.Tensor) -> tuple:
+    def _screen(self, images: torch.Tensor, size: int) -> tuple:
         """Queue the screen of the picked lanes' images (their upload,
-        ``images``) and of every slot's rows on the device, and their
-        copies to the host; returns the host tensors and an event that
-        marks them ready."""
-        finite, sums = self._slot_state.row_checks()
+        ``images``) and of every slot's rows at ``size`` on the device, and
+        their copies to the host; returns the host tensors and an event
+        that marks them ready."""
+        finite, sums = self._slot_states[size].row_checks()
         img_ok = torch.isfinite(images.reshape(images.shape[0], -1)).all(dim=1)
         host = [None if t is None else _to_host_async(t)
                 for t in (img_ok, finite, sums)]
@@ -676,13 +1082,14 @@ class VigServeEngine:
             ready.record()
         return (*host, ready)
 
-    def _screened(self, picked: list, img_ok, finite, sums, ready) -> list:
+    def _screened(self, picked: list, size: int, img_ok, finite, sums,
+                  ready) -> tuple:
         """The screen's verdicts, once ``ready``: quarantine a lane whose
-        image or state rows are not finite, serve cold (reset) a lane
-        whose rows' checksum no longer matches its token (rows never
-        tokened are trusted, and rows the engine wrote since, take theirs
-        now). Returns the healthy lanes' indices in ``picked`` and whether
-        a healthy lane's rows were reset."""
+        image or state rows are not finite, serve cold (reset at ``size``)
+        a lane whose rows' checksum no longer matches its token (rows
+        never tokened are trusted, and rows the engine wrote since, take
+        theirs now). Returns the healthy lanes' indices in ``picked`` and
+        whether a healthy lane's rows were reset."""
         if ready is not None:
             ready.synchronize()
         keep, reset = [], False
@@ -702,12 +1109,15 @@ class VigServeEngine:
                     detail=f"non-finite state rows on slot {slot}"))
                 continue
             token = int(sums[slot])
-            if slot in self._tokens_due or slot not in self._row_tokens:
-                self._adopt_tokens([slot], sums)
-            elif self._row_tokens[slot] != token:
+            tk = self._token_key(size, slot)
+            if (size, slot) in self._tokens_due or tk not in self._row_tokens:
+                self._adopt_tokens(size, [slot], sums)
+            elif self._row_tokens[tk] != token:
                 # Finite but token-mismatched rows (silent corruption):
                 # serve this request cold.
-                self._reset_rows_all([slot])
+                self._slot_states[size] = self._slot_states[size].reset_rows(
+                    [slot])
+                self._refresh_tokens([slot], size)
                 self.state_resets += 1
                 self.fault_log.append(FaultInfo(
                     kind="state_corruption", site="state.rows",
@@ -719,16 +1129,11 @@ class VigServeEngine:
             keep.append(i)
         return keep, reset
 
-    def _reset_rows_all(self, slots) -> None:
-        """Cold-reset ``slots``' rows; their tokens fall due."""
-        self._slot_state = self._slot_state.reset_rows(list(slots))
-        self._refresh_tokens(slots)
-
     def _quarantine(self, slot: int, req: VigRequest,
                     info: FaultInfo) -> None:
         """Fail one request with a typed ``FaultInfo`` and cold-reset its
-        slot; co-batched tenants are untouched (the lane never reaches the
-        program)."""
+        slot at every size; co-batched tenants are untouched (the lane
+        never reaches the program)."""
         req.fault = info
         req.logits = None
         req.done = True
@@ -736,7 +1141,7 @@ class VigServeEngine:
         self.requests_failed += 1
         self.fault_log.append(info)
         self.last_quarantined.append(slot)
-        if self._slot_state is not None:
+        if self._slot_states:
             self._reset_rows_all([slot])
             self.state_resets += 1
         self._slot_last_tick[slot] = self._tick
@@ -785,16 +1190,41 @@ class VigServeEngine:
                 self._drift_sum += float(drift.sum())
                 self._drift_n += int(drift.numel())
 
+    # -- the tick -------------------------------------------------------
+
+    def _lanes(self, size: int, masked: bool, imgs: list, masks: list,
+               lanes: list) -> tuple:
+        """The tick's bucket, cell key, device batch (and mask) and state
+        rows for the live ``lanes``, padded by replicating lane 0."""
+        a = len(lanes)
+        bucket = self.bucket_for(a)
+        width = self._tick_width(bucket)
+        key = self._program_key(bucket, size, masked)
+        pad = width - a
+        images, mask = self._upload(
+            key, imgs + [imgs[0]] * pad,
+            masks + [masks[0]] * pad if masked else None)
+        rows = self._slot_states[size].take_rows(lanes + [lanes[0]] * pad)
+        return bucket, key, images, mask, rows
+
     def step(self) -> int:
-        """One tick: bind queued requests to slots, screen each lane, serve
-        the healthy ones padded to a bucket. Returns the number of
-        requests served (quarantined ones are done, with ``fault`` set)."""
+        """One tick: pick a cell, bind its queued requests to slots,
+        screen each lane, serve the healthy ones padded to a bucket.
+        Returns the number of requests served (quarantined ones are done,
+        with ``fault`` set); 0 when the scheduler defers (no device work,
+        ``_tick`` unchanged)."""
         if not self.queue:
             return 0
         if self.mode != "jit":
             raise RuntimeError(
-                "the multi-tenant request path serves through the bucket "
+                "the multi-tenant request path serves through the cell "
                 "programs (CUDA graphs on a card); construct with mode='jit'")
+        cell, eligible = self._select_cell()
+        if cell is None:
+            self.deferrals += 1
+            self._prefetch_parked()
+            return 0
+        size, masked = cell
         self._tick += 1
         self.last_resets = []
         self.last_restores = []
@@ -803,7 +1233,7 @@ class VigServeEngine:
         assigned: dict[int, int] = {}  # id(request) -> slot
         # Pass 1: tenants that own a slot reserve it, so a new tenant can
         # only evict idle slots. One lane per tenant per tick.
-        for req in self.queue:
+        for req in eligible:
             if len(assigned) >= self.slots:
                 break
             slot = self._tenant_slot.get(self._tkey(req))
@@ -811,7 +1241,7 @@ class VigServeEngine:
                 used.add(slot)
                 assigned[id(req)] = slot
         # Pass 2: new tenants, in arrival order.
-        for req in self.queue:
+        for req in eligible:
             if len(assigned) >= self.slots:
                 break
             tkey = self._tkey(req)
@@ -822,82 +1252,92 @@ class VigServeEngine:
                 continue
             used.add(slot)
             assigned[id(req)] = slot
-        picked = sorted(((assigned[id(r)], r) for r in self.queue
+        picked = sorted(((assigned[id(r)], r) for r in eligible
                          if id(r) in assigned), key=lambda sr: sr[0])
         self.queue = [r for r in self.queue if id(r) not in assigned]
 
-        state = self._ensure_slot_state()
+        state = self._ensure_slot_state(size)
         # Fault site: an unsanctioned state mutation, adopted without
         # refreshing the integrity tokens (which exist to catch it): the
         # rows the engine wrote since the last tokens are tokened first.
         mutated = self._fire("state.rows", value=state)
         if mutated is not state:
-            self._flush_tokens()
-            self._slot_state = mutated
+            self._flush_tokens(size)
+            self._slot_states[size] = mutated
+        n = (size // self.cfg.patch) ** 2
         imgs: list[np.ndarray] = []
+        masks: list[np.ndarray] = []
         for slot, req in picked:
             img = np.asarray(req.image, np.float32)
             fired = self._fire("admit.image", value=img, tenant=req.tenant)
-            imgs.append(img if fired is img else np.asarray(fired, np.float32))
-        a = len(picked)
-        bucket = self.bucket_for(a)
+            img = img if fired is img else np.asarray(fired, np.float32)
+            if masked:
+                if img.shape[0] < size:
+                    # Zero-pad the ragged image up to its cell: the patch
+                    # embedding is node-local, so live patches see their
+                    # own pixels and the pad patches are masked downstream.
+                    canvas = np.zeros((size, size, img.shape[-1]), np.float32)
+                    canvas[:img.shape[0], :img.shape[1]] = img
+                    img = canvas
+                mask = self._req_mask(req)
+                masks.append(np.ones(n, bool) if mask is None
+                             else np.asarray(mask, bool))
+            imgs.append(img)
         lanes = [slot for slot, _ in picked]
-        images = self._upload(bucket, imgs + [imgs[0]] * (bucket - a))
-        screen = self._screen(images[:a]) if self.guards else None
-        # Padding lanes replicate lane 0, image and state row: their
-        # compute mirrors a live lane (warm whenever lane 0 is) and their
-        # outputs and state are dropped. The gather overlaps the screen.
-        bucket_state = self._slot_state.take_rows(
-            lanes + [lanes[0]] * (bucket - a))
+        a = len(lanes)
+        bucket, key, images, mask, bucket_state = self._lanes(
+            size, masked, imgs, masks, lanes)
         healthy = picked
-        if screen is not None:
-            keep, reset = self._screened(picked, *screen)
+        if self.guards:
+            screen = self._screen(images[:a], size)
+            keep, reset = self._screened(picked, size, *screen)
             if not keep:
                 self.last_lanes = []
                 self.last_bucket = None
+                self.last_cell = None
+                self._prefetch_parked()
                 return 0
             if len(keep) < a or reset:
                 # Quarantined lanes never reach the program and recovered
                 # rows are served cold: the tick goes up again, in the
                 # bucket that fits the healthy lanes.
                 healthy = [picked[i] for i in keep]
-                kept = [imgs[i] for i in keep]
                 lanes = [slot for slot, _ in healthy]
                 a = len(lanes)
-                bucket = self.bucket_for(a)
-                images = self._upload(bucket, kept + [kept[0]] * (bucket - a))
-                bucket_state = self._slot_state.take_rows(
-                    lanes + [lanes[0]] * (bucket - a))
+                bucket, key, images, mask, bucket_state = self._lanes(
+                    size, masked, [imgs[i] for i in keep],
+                    [masks[i] for i in keep] if masked else [], lanes)
         self.last_lanes = list(lanes)
         self.last_bucket = bucket
-        state = self._slot_state
-        program = self._program_for(bucket)
+        self.last_cell = (size, bucket)
+        state = self._slot_states[size]
+        program = self._program_for(bucket, size, masked)
         # The timed serve section: the program, the scatter and the host
         # sync that brings the logits back.
         t0 = time.perf_counter()
         self._fire("tick.serve", bucket=bucket)
         reads = gate_reads()
-        logits, new_bucket_state = self._serve(bucket, program, images,
-                                               bucket_state)
+        logits, new_bucket_state = self._serve(key, program, images,
+                                               bucket_state, mask)
         self.gate_reads += gate_reads() - reads
         # Scatter the live lanes only: rows >= a (padding) are dropped.
-        self._slot_state = state.put_rows(new_bucket_state, lanes)
+        self._slot_states[size] = state.put_rows(new_bucket_state, lanes)
         # The written rows' new tokens ride the logits' transfer: their
         # copy is queued first, and the logits' host sync closes both. A
         # program that passed the state through (a stateless tier) wrote
         # the lanes' rows back unchanged: their tokens stand.
         if self.guards and new_bucket_state is not bucket_state:
-            self._tokens_due.update(lanes)
-        due = sorted(self._tokens_due)
+            self._tokens_due.update((size, s) for s in lanes)
+        due = self._due(size)
         if due:
-            sums = _to_host_async(self._slot_state.row_checks()[1])
+            sums = _to_host_async(self._slot_states[size].row_checks()[1])
         logits_np = logits[:a].cpu().numpy()  # host sync closes the tick
         if due:
-            self._adopt_tokens(due, sums)
-        self._graph_stats_update(state, self._slot_state, lanes)
+            self._adopt_tokens(size, due, sums)
+        self._graph_stats_update(state, self._slot_states[size], lanes)
         elapsed_ms = (time.perf_counter() - t0) * 1e3
-        first_tick = bucket not in self._program_ticks
-        self._program_ticks[bucket] = self._program_ticks.get(bucket, 0) + 1
+        first_tick = key not in self._program_ticks
+        self._program_ticks[key] = self._program_ticks.get(key, 0) + 1
         if self.deadline_ms is not None and not first_tick:
             # A program's first tick builds and captures it: never a
             # deadline signal.
@@ -925,18 +1365,26 @@ class VigServeEngine:
                 self._tenant_slot.pop(("req", req.uid), None)
         self.requests_served += a
         self.bucket_ticks[bucket] = self.bucket_ticks.get(bucket, 0) + 1
+        self.cell_ticks[(size, bucket)] = self.cell_ticks.get((size, bucket), 0) + 1
+        # Padding accounting: padded_lanes is the sum over ticks of
+        # (width - live), exactly.
+        width = self._tick_width(bucket)
         self.live_lanes += a
-        self.padded_lanes += bucket - a
-        hk = (self.cfg.image_size, a)
-        self.lane_hist[hk] = self.lane_hist.get(hk, 0) + 1
+        self.padded_lanes += width - a
+        self.lane_hist[(size, a)] = self.lane_hist.get((size, a), 0) + 1
+        self._prefetch_parked()
         return a
 
     def run(self) -> list[VigRequest]:
         """Drain the queue; returns the completed requests in submission
-        order."""
+        order. Under the scheduler a deferred tick advances time to the
+        next deadline (a ``VirtualClock`` jumps, the wall clock sleeps),
+        so the drain ends."""
         pending = list(self.queue)
         while self.queue:
-            self.step()
+            served = self.step()
+            if not served and self.queue and self._next_deadline is not None:
+                self._advance_to_deadline()
         return [r for r in pending if r.done]
 
     # -- observability --------------------------------------------------
@@ -945,12 +1393,14 @@ class VigServeEngine:
         """The direct path's state step counters, by batch size."""
         return {b: st.steps() for b, (_, st) in self._direct.items()}
 
-    def slot_row_steps(self) -> dict:
-        """Per-slot request counters of the canonical state (empty before
-        the first tick)."""
-        if self._slot_state is None:
+    def slot_row_steps(self, size: Optional[int] = None) -> dict:
+        """Per-slot request counters of the canonical state at ``size``
+        (default: the first size; empty before its first tick)."""
+        st = self._slot_states.get(self.image_sizes[0] if size is None
+                                   else size)
+        if st is None:
             return {}
-        return self._slot_state.row_steps()
+        return st.row_steps()
 
     def stats(self) -> dict:
         out = {
@@ -958,11 +1408,22 @@ class VigServeEngine:
             "mode": self.mode,
             "compile_count": self.compile_count,
             "buckets": self.buckets,
+            "image_sizes": self.image_sizes,
             "bucket_ticks": dict(self.bucket_ticks),
+            "cell_ticks": {f"{s}x{b}": n
+                           for (s, b), n in self.cell_ticks.items()},
+            "queue_depth": len(self.queue),
             "live_lanes": self.live_lanes,
             "padded_lanes": self.padded_lanes,
+            "util": (self.live_lanes / (self.live_lanes + self.padded_lanes)
+                     if self.live_lanes + self.padded_lanes else 1.0),
             "lane_hist": {f"{s}x{live}": n
                           for (s, live), n in sorted(self.lane_hist.items())},
+            "deferrals": self.deferrals,
+            "slo_ms": (dict(self._slo_ms) if isinstance(self._slo_ms, dict)
+                       else self._slo_ms),
+            "prefetch_issued": self.prefetch_issued,
+            "prefetch_hits": self.prefetch_hits,
             "slot_tenants": list(self.slot_tenant),
             "digc_state": self.state_steps(),
             "slot_row_steps": self.slot_row_steps(),
@@ -999,6 +1460,14 @@ class VigServeEngine:
             out["bucket_schedules"] = {
                 b: s.describe() for b, s in self._bucket_schedules.items()}
         return out
+
+
+def _check_float(req: VigRequest, img: np.ndarray) -> None:
+    if not np.issubdtype(img.dtype, np.floating):
+        raise ValueError(
+            f"VigRequest.image (uid={req.uid}): dtype {img.dtype} is "
+            "not a float dtype; pass float32 pixel features"
+        )
 
 
 def _stage0_impl(choice) -> str:

@@ -361,11 +361,25 @@ def test_init_vig_state_layout_matches_jax(name, kw, reuse, per_slot):
 
 
 def test_init_vig_state_takes_only_the_native_grid():
-    _, cfg = _cfgs("vig_ti_iso", image_size=32, embed_dims=(16,), depths=(2,),
-                   num_classes=3, k=3)
-    assert vig.init_vig_state(cfg, 1, grid=cfg.base_grid, device=CPU)
-    with pytest.raises(vig.VigGridError, match="off-native"):
-        vig.init_vig_state(cfg, 1, grid=cfg.base_grid * 2, device=CPU)
+    """Any grid the stage plans accept (the native one and off-native
+    ones) sizes the state as JAX's ``init_vig_state(grid=)`` does; a grid
+    the plans refuse raises the same ``VigGridError``."""
+    jcfg, cfg = _cfgs("vig_ti_iso", image_size=32, patch=4, embed_dims=(16,),
+                      depths=(2,), num_classes=3, k=3)
+    spec = DigcSpec(impl="blocked", reuse="tick")
+    jspec = jvig.DigcSpec(impl="blocked", reuse="tick")
+    for grid in (cfg.base_grid, cfg.base_grid * 2, cfg.base_grid - 2):
+        st = vig.init_vig_state(cfg, 2, spec, per_slot=True, grid=grid,
+                                device=CPU)
+        jst = jvig.init_vig_state(jcfg, 2, jspec, per_slot=True, grid=grid)
+        _assert_tree_equal(convert.state_to_numpy(st), jax_tree(jst))
+    pjcfg, pcfg = _cfgs("vig_ti_pyr", image_size=32, embed_dims=(8, 12, 16, 24),
+                        depths=(1, 1, 1, 1), num_classes=3, k=3)
+    with pytest.raises(jvig.VigGridError) as want:
+        jvig.init_vig_state(pjcfg, 1, grid=10)
+    with pytest.raises(vig.VigGridError) as got:
+        vig.init_vig_state(pcfg, 1, grid=10, device=CPU)
+    assert str(got.value) == str(want.value)
 
 
 def test_vig_forward_state_exact_tier_matches_stateless_and_jax():

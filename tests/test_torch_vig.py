@@ -155,10 +155,13 @@ def test_forward_rejects_bad_grids_like_jax():
         vig.vig_forward(params, torch.zeros(1, 64, 32, 3), cfg, digc_impl="cuda")
     with pytest.raises(vig.VigGridError, match="divisible by patch"):
         vig.vig_forward(params, torch.zeros(1, 62, 62, 3), cfg, digc_impl="cuda")
-    with pytest.raises(vig.VigGridError, match="not ported"):
-        vig.vig_forward(params, torch.zeros(1, 32, 32, 3), cfg, digc_impl="cuda")
-    # The config's default tier (blocked) runs; only the grid is checked.
+    # 40 / 4 = grid 10: stage 0's reduce ratio 4 does not divide it.
+    with pytest.raises(vig.VigGridError, match="reduce ratio"):
+        vig.vig_forward(params, torch.zeros(1, 40, 40, 3), cfg, digc_impl="cuda")
+    # The config's default tier (blocked) runs, at the native grid and off
+    # it (32 / 4 = grid 8: every stage divides); only the grid is checked.
     assert vig.vig_forward(params, torch.zeros(1, 64, 64, 3), cfg).shape == (1, 5)
+    assert vig.vig_forward(params, torch.zeros(1, 32, 32, 3), cfg).shape == (1, 5)
 
 
 # (variant, overrides): vig_ti_iso at image 96 with k 4 and depth 6, so
