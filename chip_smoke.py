@@ -122,13 +122,31 @@ Phases, each printed as it runs; any failure exits non-zero:
     ``prefetch=False``, and ``slo_ms=0`` bit for bit the legacy engine;
     then the trace on the wall clock, ``slo_ms`` against ``slo_ms=0`` in
     turns: requests/s, padded lanes and admission-to-logits p50 / p99 per
-    class (printed, not gated).
+    class (printed, not gated);
+21. the approximate tiers, plain PyTorch (no kernel of their own):
+    ``cluster_digc`` at B = 8, D = 192 and each main-path kd at N = 196
+    and 784, on co-nodes built so that every distance is an exact integer,
+    cold and per-row warm/cold, bit for bit the same function on the CPU;
+    ``axial_digc`` at N = 196 against the CPU except at near-ties; each
+    with its recall against the ``cuda`` kernel, device ms and device
+    operations / host launch calls per call beside the kernel's; per
+    layer recall of a B = 8 forward of each tier against the kernel;
+    then ``VigServeEngine(digc_impl="cluster")`` on the phase-4 trace
+    (two passes) and on (tenant, size) waves over 224^2 and 448^2,
+    captured bit for bit an ``EagerEngine`` (logits and centroids), warm
+    rows at both sizes, no DIGC or MRConv kernel launched; the steady
+    captured bucket-8 tick of a cluster and a cuda engine in turns and
+    profiled (device busy, host launch calls); last, a centroid bitflip
+    served cold with the co-batched lanes bit for bit the fault-free run
+    and a persistent cluster build failure walking the ladder to
+    ``blocked``.
 
 Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
-tier, which must launch none). A replayed graph adds the launches its
-capture recorded. Every engine outside phase 17 must end with
+tier, which must launch none; so do phase 21's cluster engines). A
+replayed graph adds the launches its capture recorded. Every engine
+outside phases 17 and 21 (c) must end with
 ``fallback_level`` 0 and no logged fault. The line before the last is the kernel summary
 as JSON (one entry per kernel and DIGC variant); the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -152,7 +170,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import testing  # noqa: E402
 from repro_torch.core import DigcSpec, DigcTuner, digc, grid_pos_bias  # noqa: E402
-from repro_torch.core import perfmodel  # noqa: E402
+from repro_torch.core import perfmodel, prng, strategies  # noqa: E402
 from repro_torch.core.tuner import LEGACY_TILES, time_calls  # noqa: E402
 from repro_torch.core.digc import drift_stat  # noqa: E402
 from repro_torch.core.knn_attention import knn_attention_mha  # noqa: E402
@@ -2255,6 +2273,332 @@ def scheduler_phase() -> None:
               f"{o['padded']}; admission to logits {lat}")
 
 
+# Phase 21: the approximate tiers (cluster, axial) at the lattice's 224^2
+# and 448^2 cells of vig_ti_iso (N = 196 with 7 clusters at full probe;
+# N = 784 with 28 clusters, 8 probed).
+APPROX_SIZES = (224, 448)
+APPROX_WAVES = [
+    [(f"t{i}", 448) for i in range(8)],
+    [("t0", 224), ("t1", 224), ("t2", 448)],
+    [(f"t{i}", 448) for i in range(8)],
+    [("t8", 448)],
+    [(f"t{i}", 224) for i in range(8)],
+]
+
+
+def exact_clusters(seed: int, b: int, m: int, d: int, n_clusters: int,
+                   perm: np.ndarray) -> np.ndarray:
+    """(b, m, d) co-nodes whose cluster index has no near-tie: m /
+    n_clusters integer points around each of n_clusters centres (integer
+    multiples of 10 per axis) with offsets in {-1, 0, 1} that cancel in
+    pairs, and the cold start's permutation rows (``perm[:n_clusters]``)
+    one in each cluster. The first Lloyd step then finds the clusters,
+    every centroid is its integer centre exactly and every distance is an
+    exact integer in any summation order, so the card and the CPU must
+    agree bit for bit; ties go to the lowest index on both."""
+    rng = np.random.default_rng(seed)
+    size = m // n_clusters
+    out = np.empty((b, m, d), np.float32)
+    for i in range(b):
+        lab = np.empty(m, np.int64)
+        lab[perm[:n_clusters]] = np.arange(n_clusters)
+        rest = np.setdiff1d(np.arange(m), perm[:n_clusters])
+        lab[rest] = rng.permutation(np.repeat(np.arange(n_clusters), size - 1))
+        centres = rng.integers(-3, 4, (n_clusters, d)) * 10
+        for c in range(n_clusters):
+            half = rng.integers(-1, 2, (size // 2, d))
+            out[i, lab == c] = centres[c] + rng.permutation(
+                np.concatenate([half, -half]))
+    return out
+
+
+def captured_ms(fn) -> float:
+    """Device ms of one call of ``fn`` captured as a CUDA graph, its
+    replays timed by ``time_ms``: a function of a few hundred small
+    launches, called directly, fills the launch queue and is paced by the
+    host however long the device is held."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay)[0]
+
+
+def device_launches(fn) -> tuple[int, int]:
+    """(operations the device ran, host launch calls) in one call of
+    ``fn``, by torch.profiler after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ran = sum(e.count for e in events if str(e.device_type).endswith("CUDA"))
+    calls = sum(e.count for e in events
+                if not str(e.device_type).endswith("CUDA")
+                and e.key.startswith("cuda") and "Launch" in e.key)
+    return ran, calls
+
+
+def neighbour_recall(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean share of each row of ``b`` (..., k) that ``a`` holds."""
+    a = a.reshape(-1, a.shape[-1]).cpu().numpy()
+    b = b.reshape(-1, b.shape[-1]).cpu().numpy()
+    return float(np.mean([len(set(x) & set(y)) / len(y) for x, y in zip(a, b)]))
+
+
+def approx_calls() -> None:
+    """(a): each tier on the card against the same function on the CPU at
+    B = 8, the main-path kd of each size, with device ms and launches per
+    call beside the cuda kernel's."""
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    d = cfg.embed_dims[0]
+    for size in APPROX_SIZES:
+        plan = vig.vig_stage_plans(cfg, "cluster", grid=size // cfg.patch)[0]
+        n = plan.n
+        kds = sorted({k * dil for k, dil in zip(plan.k_effs, plan.dilations)})
+        n_clusters, n_probe = strategies.default_cluster_params(n, None, None)
+        y = exact_clusters(size, 8, n, d, n_clusters,
+                           prng.permutation(0, n, "cpu").numpy())
+        x, xc = to_dev(y), torch.from_numpy(y)
+        for kd in kds:
+            got = strategies.cluster_digc(x, k=kd, return_dists=True,
+                                          return_state=True)
+            want = strategies.cluster_digc(xc, k=kd, return_dists=True,
+                                           return_state=True)
+            init = got[2]["centroids"]
+            valid = torch.tensor([True, False] * 4)
+            got_w = strategies.cluster_digc(
+                x, k=kd, init_centroids=init, init_valid=valid.to(DEV),
+                return_dists=True)
+            want_w = strategies.cluster_digc(
+                xc, k=kd, init_centroids=init.cpu(), init_valid=valid,
+                return_dists=True)
+            for g, w in ((got[:2], want[:2]), (got_w, want_w)):
+                if not (torch.equal(g[0].cpu(), w[0]) and torch.equal(g[1].cpu(), w[1])):
+                    raise AssertionError(f"cluster_digc N={n} kd={kd}: the card "
+                                         "differs from the CPU")
+            if not torch.equal(init.cpu(), want[2]["centroids"]):
+                raise AssertionError(f"cluster_digc N={n}: centroids differ")
+            # Captured, a call with a warm/cold flag builds both indexes.
+            all_warm = torch.ones(8, dtype=torch.bool, device=DEV)
+            cold_ms = captured_ms(lambda: strategies.cluster_digc(x, k=kd))
+            warm_ms = captured_ms(lambda: strategies.cluster_digc(
+                x, k=kd, init_centroids=init, kmeans_iters=2))
+            mixed_ms = captured_ms(lambda: strategies.cluster_digc(
+                x, k=kd, init_centroids=init, init_valid=all_warm))
+            cuda_ms = time_ms(lambda: digc_topk_cuda(x, x, kd))[0]
+            cold_ops = device_launches(lambda: strategies.cluster_digc(x, k=kd))
+            warm_ops = device_launches(lambda: strategies.cluster_digc(
+                x, k=kd, init_centroids=init, kmeans_iters=2))
+            cuda_ops = device_launches(lambda: digc_topk_cuda(x, x, kd))
+            recall = neighbour_recall(got[0], digc_topk_cuda(x, x, kd)[1])
+            print(f"cluster_digc B=8 N={n} D={d} kd={kd} (C={n_clusters}, "
+                  f"probe {n_probe}): card = CPU bit for bit, cold and per-row "
+                  f"warm/cold; recall vs cuda {recall:.4f}; device ms "
+                  f"(captured) cold {cold_ms:.4f}, warm {warm_ms:.4f}, read-"
+                  f"free warm/cold choice {mixed_ms:.4f}; cuda kernel "
+                  f"{cuda_ms:.4f}; device ops / host launch calls per call: "
+                  f"cold {cold_ops}, warm {warm_ops}, cuda {cuda_ops}")
+    plan = vig.vig_stage_plans(cfg, "axial")[0]
+    side = cfg.base_grid
+    x = to_dev(testing.features(21, 8, plan.n, d))
+    xc = x.cpu()
+    for kd in sorted({k * dil for k, dil in zip(plan.k_effs, plan.dilations)}):
+        got = strategies.axial_digc(x, grid_h=side, grid_w=side, k=kd,
+                                    return_dists=True)
+        want = strategies.axial_digc(xc, grid_h=side, grid_w=side, k=kd,
+                                     return_dists=True)
+        live = want[1] < BIG / 2
+        gi, gd = got[0].cpu(), got[1].cpu()
+        if not (torch.equal(gd < BIG / 2, live) and torch.equal(gi[~live], want[0][~live])):
+            raise AssertionError(f"axial kd={kd}: BIG lanes differ from the CPU")
+        fill = -1 - torch.arange(kd, dtype=gi.dtype)
+        testing.assert_topk_match(
+            torch.where(live, gi, fill).numpy(), torch.where(live, gd, 0).numpy(),
+            torch.where(live, want[0], fill).numpy(),
+            torch.where(live, want[1], 0).numpy(), rtol=RTOL, atol=ATOL)
+        ax_ms = captured_ms(lambda: strategies.axial_digc(
+            x, grid_h=side, grid_w=side, k=kd))
+        cuda_ms = time_ms(lambda: digc_topk_cuda(x, x, kd))[0]
+        ops = device_launches(lambda: strategies.axial_digc(
+            x, grid_h=side, grid_w=side, k=kd))
+        recall = neighbour_recall(got[0], digc_topk_cuda(x, x, kd)[1])
+        print(f"axial_digc B=8 N={plan.n} D={d} kd={kd}: card = CPU except at "
+              f"near-ties ({int((gi != want[0]).sum())} swaps); recall vs cuda "
+              f"{recall:.4f}; device ms (captured) {ax_ms:.4f} (cuda kernel "
+              f"{cuda_ms:.4f}); device ops / host launch calls {ops}")
+
+
+def layer_recall(params, cfg, impl: str, size: int) -> list:
+    """Per layer of one eager B = 8 forward through ``impl`` at ``size``:
+    the share of the cuda kernel's neighbours (same features, same k and
+    dilation) that the tier served."""
+    plans = vig.vig_stage_plans(cfg, impl, grid=size // cfg.patch)
+    geo = [(k, dil) for p in plans for k, dil in zip(p.k_effs, p.dilations)]
+    capture: list = []
+    images = to_dev(testing.images(size, 8, size))
+    with torch.inference_mode():
+        vig.vig_forward(params, images, cfg, digc_impl=impl, digc_capture=capture)
+        out = []
+        for (_, h, _), (k, dil) in zip(capture, geo):
+            served = digc(h, spec=DigcSpec(impl=impl, k=k, dilation=dil).with_grid(
+                size // cfg.patch, size // cfg.patch))
+            exact = digc_topk_cuda(h, h, k * dil)[1][..., ::dil]
+            out.append(neighbour_recall(served, exact))
+    return out
+
+
+def approx_serving() -> None:
+    phase("21. the approximate tiers: cluster_digc and axial_digc against the "
+          "CPU; a captured cluster engine at 224^2 and 448^2; cluster faults")
+    approx_calls()
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    for size in APPROX_SIZES:
+        rec = layer_recall(params, cfg, "cluster", size)
+        print(f"cluster tier at {size}^2, per layer recall vs cuda (B = 8 "
+              f"forward): {[round(r, 4) for r in rec]}")
+    rec = layer_recall(params, cfg, "axial", 224)
+    print(f"axial tier at 224^2, per layer recall vs cuda: "
+          f"{[round(r, 4) for r in rec]}")
+    with torch.inference_mode():
+        logits = vig.vig_forward(params, to_dev(testing.images(5, 8, 224)), cfg,
+                                 digc_impl="axial")
+    if logits.shape != (8, cfg.num_classes) or not torch.isfinite(logits).all():
+        raise AssertionError("axial forward: bad logits")
+    # (b) phase 4's trace at 224^2, then (tenant, size) waves over 224^2
+    # and 448^2, captured against the eager engine.
+    images = [testing.images(uid, 1, cfg.image_size)[0] for uid in range(20)]
+    waves = {}
+
+    def image(uid, size):
+        return waves.setdefault((uid, size), testing.images(7000 + uid, 1, size)[0])
+
+    runs = {}
+    reset_launch_counts()
+    for name, cls in (("captured", VigServeEngine), ("eager", EagerEngine)):
+        eng = cls(cfg, params, digc_impl="cluster", device=DEV)
+        reqs = serve_trace(eng, images)[0] + serve_trace(eng, images)[0]
+        lat = cls(cfg, params, digc_impl="cluster", image_sizes=APPROX_SIZES,
+                  device=DEV)
+        ticks = serve_cells(lat, APPROX_WAVES, image) + serve_cells(
+            lat, APPROX_WAVES, image)
+        for e in (eng, lat):
+            assert_no_faults(e, f"phase 21, {name}")
+        runs[name] = (eng, reqs, lat, [r for t in ticks for r in t[2]])
+    if fired(launch_counts()):
+        raise AssertionError(f"the cluster path launched {fired(launch_counts())}")
+    (ceng, creqs, clat, cwave), (eeng, ereqs, elat, ewave) = (
+        runs["captured"], runs["eager"])
+    for a, b in zip(creqs + cwave, ereqs + ewave):
+        if not np.array_equal(a.logits, b.logits):
+            raise AssertionError(f"request {a.uid}: captured cluster logits "
+                                 "differ from the eager engine's")
+    for c, e in ((ceng, eeng), (clat, elat)):
+        for size in c._slot_states:
+            got = c._slot_states[size].entries["stage0"].centroids
+            if not torch.equal(got, e._slot_states[size].entries["stage0"].centroids):
+                raise AssertionError(f"{size}^2: captured centroids differ")
+    warm = {size: int((st.entries["stage0"].centroids.abs().sum((1, 2)) > 0).sum())
+            for size, st in clat._slot_states.items()}
+    if not all(warm.values()) or not ceng.park_hits:
+        raise AssertionError(f"warm rows {warm}, park hits {ceng.park_hits}")
+    print(f"phase-4 trace (2 passes) and {len(cwave) // 2} lattice requests "
+          f"x 2: captured bit for bit the eager engine (logits and centroids); "
+          f"programs captured {ceng.compile_count} + {clat.compile_count}; "
+          f"slot rows warm by size {warm}; row steps 224^2 "
+          f"{ceng.slot_row_steps()['stage0']}; warm/cold reads captured "
+          f"{ceng.gate_reads + clat.gate_reads}, eager "
+          f"{eeng.gate_reads + elat.gate_reads}; park hits {ceng.park_hits}; "
+          "no DIGC or MRConv kernel launched")
+    # Steady bucket-8 ticks, cluster and cuda engines in turns.
+    engines = {impl: VigServeEngine(cfg, params, digc_impl=impl, buckets=(8,),
+                                    image_sizes=APPROX_SIZES, device=DEV)
+               for impl in ("cluster", "cuda")}
+    imgs = {s: [testing.images(5000 + i, 1, s)[0] for i in range(8)]
+            for s in APPROX_SIZES}
+    ms: dict = {}
+
+    def tick(eng, size):
+        for i in range(8):
+            eng.submit(VigRequest(9000 + i, imgs[size][i], tenant=f"p{i}"))
+        s = time.perf_counter()
+        eng.step()
+        return (time.perf_counter() - s) * 1e3
+
+    for impl in engines:
+        for size in APPROX_SIZES:
+            tick(engines[impl], size)
+    for _ in range(2):
+        for impl in ("cluster", "cuda", "cuda", "cluster"):
+            for size in APPROX_SIZES:
+                ms.setdefault((impl, size), []).extend(
+                    tick(engines[impl], size) for _ in range(3))
+    print("steady captured bucket-8 tick, median of 12 in turns: " + ", ".join(
+        f"{impl} {size}^2 {statistics.median(v):.3f} ms"
+        for (impl, size), v in sorted(ms.items())))
+    for size in APPROX_SIZES:
+        for impl, eng in engines.items():
+            print(f"profiled steady bucket-8 tick, {impl} at {size}^2:")
+            profile_tick(eng, imgs[size], tag="p")
+    for eng in engines.values():
+        assert_no_faults(eng, "phase 21 timing")
+    approx_faults(cfg, params)
+
+
+def approx_faults(cfg, params) -> None:
+    """(c): a centroid bitflip recovers cold with the co-batched lanes bit
+    for bit the fault-free run; a persistent cluster build failure walks
+    the ladder to blocked."""
+    tenants = ("A", "B", "C")
+    frames = {(t, i): testing.images(8000 + 10 * t + i, 1, cfg.image_size)[0]
+              for t in range(4) for i in range(3)}
+
+    def run(plan=None, **kw):
+        eng = VigServeEngine(cfg, params, digc_impl="cluster", buckets=(4,),
+                             fault_plan=plan, device=DEV, **kw)
+        reqs = {}
+        for t in range(4):
+            for i, n in enumerate(tenants):
+                reqs[(t, n)] = r = VigRequest(10 * t + i, frames[(t, i)], tenant=n)
+                eng.submit(r)
+            eng.step()
+        return eng, reqs
+
+    clean_eng, clean = run()
+    assert_no_faults(clean_eng, "phase 21 fault-free run")
+    plan = FaultPlan(seed=3).inject_state_corruption(
+        field="centroids", row=1, tick=2, mode="bitflip")
+    eng, reqs = run(plan)
+    st = eng.stats()
+    if not (plan.counts() == {"state_corruption": 1} and st["quarantines"] == 0
+            and st["state_resets"] >= 1 and st["fallback_level"] == 0
+            and [f["kind"] for f in st["faults"]] == ["state_corruption"]):
+        raise AssertionError(f"centroid bitflip: {fault_counters(eng)}")
+    for key, r in reqs.items():
+        if key[1] != "B" and not np.array_equal(r.logits, clean[key].logits):
+            raise AssertionError(f"{key}: logits differ from the fault-free run")
+    print(f"centroid bitflip ({plan.fired[0].detail}): detected, B served "
+          f"cold, A and C bit for bit the fault-free run; {fault_counters(eng)}")
+    plan = FaultPlan(seed=5).inject_build_failure(impl="cluster", times=None)
+    eng, reqs = run(plan, retry_backoff=0.0)
+    st = eng.stats()
+    if (st["fallback_level"], st.get("fallback_impl")) != (1, "blocked") or any(
+            r.logits is None or not np.isfinite(r.logits).all()
+            for r in reqs.values()):
+        raise AssertionError(f"build-failure ladder: {fault_counters(eng)}")
+    print(f"persistent cluster build failure: the ladder serves on "
+          f"{st['fallback_impl']}; {fault_counters(eng)}")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -2278,6 +2622,7 @@ def main() -> None:
     captured_vs_eager(specs)
     lattice_per_n = lattice_serving()
     scheduler_phase()
+    approx_serving()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

@@ -1,9 +1,9 @@
 # Dynamic Image Graph Construction (DIGC) in PyTorch: the spec + builder
-# registry, the reference and blocked tiers, the graph ops, the functional
-# DIGC state, fault injection, the tuner and the cost models.
-# Batched-first: (B, N, D) in, (B, N, k) int32 out, with (N, D) promoted
-# to B=1. The ``cuda`` tier registers from ``repro_torch.kernels.ops`` on
-# first use.
+# registry, the reference and blocked tiers, the approximate cluster and
+# axial tiers, the graph ops, the functional DIGC state, fault injection,
+# the tuner and the cost models. Batched-first: (B, N, D) in, (B, N, k)
+# int32 out, with (N, D) promoted to B=1. The ``cuda`` tier registers from
+# ``repro_torch.kernels.ops`` on first use.
 
 from repro_torch.core.builder import (
     DEGRADATION_LADDER,
@@ -51,6 +51,13 @@ from repro_torch.core.state import (
     DigcState,
     DigcStateEntry,
     state_entry,
+)
+from repro_torch.core.strategies import (
+    axial_digc,
+    cluster_digc,
+    default_cluster_params,
+    kmeans,
+    recall_vs_exact,
 )
 from repro_torch.core.tuner import (
     DigcTuner,

@@ -11,7 +11,8 @@
   ``_LAZY`` names that module, so ``get_builder("cuda")`` imports the
   kernel package on demand.
 * the degradation ladder -- ``DEGRADATION_LADDER``, ``fallback_chain``,
-  ``degraded_spec``: pure functions; no serving path calls them yet.
+  ``degraded_spec``: pure functions the serving engine's ``_degrade``
+  walks.
 
 Build functions are batched-first: x (B, N, D), y (B, M, D) or None (the
 self-graph), pos_bias (B, N, M) or None -> (idx, dist), each (B, N, k).
@@ -131,7 +132,8 @@ class GraphBuilder:
     live co-nodes), builders with ``supports_state`` take
     ``state_entry=`` (a ``core.state.DigcStateEntry``) and then return
     ``(idx, dist, new_entry)``; for every other builder ``digc()`` passes
-    the state through unchanged. ``aggregate`` is an optional fused
+    the state through unchanged. ``exact`` is False for an approximate
+    tier (``cluster``, ``axial``). ``aggregate`` is an optional fused
     neighbour aggregation (x, y, idx) -> (B, N, D); None means
     ``mr_aggregate``.
     """
@@ -141,6 +143,7 @@ class GraphBuilder:
     knobs: frozenset
     supports_pos_bias: bool = False
     supports_causal: bool = False
+    exact: bool = True
     supports_pad: bool = False
     supports_state: bool = False
     aggregate: Optional[Callable] = None
@@ -195,12 +198,13 @@ class GraphBuilder:
 
 _REGISTRY: dict[str, GraphBuilder] = {}
 
-# name -> module whose import registers it. The other tiers of the JAX
-# package (cluster, axial, ring) are not ported yet.
+# name -> module whose import registers it.
 _LAZY: dict[str, str] = {
     "reference": "repro_torch.core.digc",
     "blocked": "repro_torch.core.digc",
     "cuda": "repro_torch.kernels.ops",
+    "cluster": "repro_torch.core.strategies",
+    "axial": "repro_torch.core.strategies",
 }
 
 

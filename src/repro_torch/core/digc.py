@@ -16,7 +16,7 @@ GraphBuilder registry. This module registers the ``reference`` and
 
 ``digc(..., state=, state_key=)`` is the functional form: it threads a
 ``core.state.DigcState`` through the call and returns it updated. Around
-every stateful builder (the ``blocked`` tier) sits the drift-gated
+every stateful builder (``blocked``, ``cluster``) sits the drift-gated
 stale-graph reuse gate (DESIGN.md §12): when a row's features drifted
 less than ``drift_tau`` since its cached graph was built, and the graph
 is younger than ``max_stale`` gated calls, the cached graph is served

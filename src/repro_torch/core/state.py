@@ -11,8 +11,8 @@ new state and never mutates its input.
 a ``DigcStateEntry`` of tensors:
 
   * ``step``      -- () int32 call counter; 0 means cold.
-  * ``centroids`` -- (B, C, D) cluster centroids, or None (no tier of the
-    port fills them yet; the field keeps the JAX layout).
+  * ``centroids`` -- (B, C, D) k-means centroids (the ``cluster`` tier's
+    warm start), or None.
   * ``sq_y``      -- (B, M) co-node squared norms (the blocked tier's
     frozen-gallery hook), or None.
   * ``row_step``  -- optional (B,) int32 per-row call counters for

@@ -36,6 +36,7 @@ from repro_torch.core.digc import RefreshFork, digc
 from repro_torch.core.engine import live_mask
 from repro_torch.core.graph import mr_aggregate
 from repro_torch.core.state import DigcState, state_entry
+from repro_torch.core.strategies import default_cluster_params
 from repro_torch.core.tuner import VigSchedule
 from repro_torch.device import resolve_device
 from repro_torch.models.convert import flatten, init_params, unflatten, vig_param_spec  # noqa: F401
@@ -472,7 +473,9 @@ def init_vig_state(cfg: VigConfig, batch: int,
                    grid: Optional[int] = None, device="cuda") -> DigcState:
     """The functional DIGC state for a model and batch size, on
     ``device``: one entry per stage (the key ``grapher_block`` passes)
-    with a cold step counter.
+    with a cold step counter, and a (batch, C, D) centroid buffer for a
+    stage on the ``cluster`` tier (C from ``default_cluster_params`` on
+    the stage's co-node count, as the builder derives it).
 
     ``per_slot=True`` adds (batch,) per-row counters on every entry, the
     multi-tenant serving layout: each batch row is a slot whose warm/cold
@@ -487,10 +490,16 @@ def init_vig_state(cfg: VigConfig, batch: int,
     rows = batch if per_slot else None
     entries = {}
     for plan in vig_stage_plans(cfg, digc_impl, grid=grid):
-        policy, _, _ = reuse_params(plan.spec)
+        spec = plan.spec
+        cents = None
+        if spec.impl == "cluster":
+            n_clusters, _ = default_cluster_params(plan.m, spec.n_clusters,
+                                                   spec.n_probe)
+            cents = (batch, n_clusters, cfg.embed_dims[plan.index])
+        policy, _, _ = reuse_params(spec)
         graph = (batch, plan.n, plan.k_effs[0]) if policy is not None else None
-        entries[plan.key] = state_entry(rows=rows, graph_shape=graph,
-                                        device=device)
+        entries[plan.key] = state_entry(centroids_shape=cents, rows=rows,
+                                        graph_shape=graph, device=device)
     return DigcState.init(entries)
 
 

@@ -31,10 +31,11 @@ RTOL, ATOL = 1e-5, 1e-4
 
 
 def test_registry_lists_ported_tiers_and_rejects_the_rest():
-    assert builder.available_impls() == ("blocked", "cuda", "reference")
+    assert builder.available_impls() == (
+        "axial", "blocked", "cluster", "cuda", "reference")
     assert builder.get_builder("cuda").aggregate is not None
-    with pytest.raises(ValueError, match=r"unknown DIGC impl: 'cluster'.*cuda"):
-        builder.get_builder("cluster")
+    with pytest.raises(ValueError, match=r"unknown DIGC impl: 'ring'.*cuda"):
+        builder.get_builder("ring")
 
 
 # Knobs of other tiers (the engine's group width and merge knobs, the JAX

@@ -317,7 +317,7 @@ def test_registry_and_degradation_ladder_match_jax():
     assert (got.impl, got.k, got.dilation, got.causal, got.knobs()) == (
         want.impl, want.k, want.dilation, want.causal, {})
     names = [b.name for b in builder.list_builders()]
-    assert names == ["blocked", "cuda", "reference"]
+    assert names == ["axial", "blocked", "cluster", "cuda", "reference"]
     jblocked = jbuilder.get_builder("blocked")
     blocked = builder.get_builder("blocked")
     assert blocked.knobs == jblocked.knobs
