@@ -139,7 +139,23 @@ Phases, each printed as it runs; any failure exits non-zero:
     profiled (device busy, host launch calls); last, a centroid bitflip
     served cold with the co-batched lanes bit for bit the fault-free run
     and a persistent cluster build failure walking the ladder to
-    ``blocked``.
+    ``blocked``;
+22. LM serving (no kernel of its own: dense attention is plain PyTorch,
+    KNN attention's prefill the ``blocked`` DIGC tier, its decode a sort):
+    (a) ``olmo-1b`` at full width (16 layers, d_model 2048, vocab 50304,
+    bf16 compute, seeded init on the card) served through
+    ``repro_torch.launch.serve.main`` with its defaults (8 requests, 16
+    prompt and 16 new tokens, 4 slots): every token in range, every
+    logit finite; tokens/s, the decode step's time by CUDA events, its
+    host launch calls and device busy share from the profiler, and its
+    bound (the bf16 weights and the cache read once); (b) a ``slots=1``
+    engine bit for bit a direct ``decode_step`` greedy loop; in fp32 at
+    full width ``prefill`` + one ``decode_step`` against ``forward``
+    (rtol 2e-3, atol 2e-4); at 2 layers, full width, fp32 the card's
+    greedy decode logits against the CPU's (max |diff| within 1e-2 of the
+    logits' RMS) with equal tokens; (c) ``attention="knn"`` with 64 neighbours: 4 requests of 256
+    prompt tokens and 16 new ones, then one ``prefill`` of 1024 tokens
+    timed, its DIGC calls counted, no kernel launched.
 
 Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
@@ -183,6 +199,11 @@ from repro_torch.kernels.digc_topk import BIG, digc_topk_cuda, digc_topk_plain  
 from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain  # noqa: E402
 from repro_torch.models import convert, vig  # noqa: E402
 from repro_torch.serve.engine import VigRequest, VigServeEngine  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.core import knn_attention  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.models import module, transformer as tr  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sched import VirtualClock, arrival_trace, replay  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32
@@ -2599,6 +2620,277 @@ def approx_faults(cfg, params) -> None:
           f"{st['fallback_impl']}; {fault_counters(eng)}")
 
 
+
+# Phase 22: the LM served on the card. The card's fp32 logits against the
+# CPU's: sums in other orders than cuBLAS's, whose rounding scales with
+# the residual stream, not with the logits. The stacked layers' fan-in
+# init takes shape[0], the layer count, as JAX's does, so at 2 layers the
+# residual grows to ~1e4 times the logits' RMS before the final norm,
+# and fp32's 1.2e-7 becomes ~1e-3 of the logits' RMS (the run prints the
+# ratio). Tolerance: max |diff| <= LM_TOL_RMS x the CPU logits' RMS, and
+# equal tokens.
+LM_TOL_RMS = 1e-2
+
+
+def profile_call(fn) -> dict:
+    """``fn()`` once under torch.profiler: host-clock ms under the
+    profiler, the device's busy ms (kernel time summed), host launch calls
+    (runtime API calls named ``cuda*Launch*``) and device kernels; prints
+    the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0)
+
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    launches = sum(e.count for e in events
+                   if not str(e.device_type).endswith("CUDA")
+                   and e.key.startswith("cuda") and "Launch" in e.key)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        print(f"  device {dev_us(e) / 1e3:8.3f} ms x{e.count:<4d} {e.key[:70]}")
+    cpu = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    for e in sorted(cpu, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        print(f"  host   {e.self_cpu_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+              f"{e.key[:70]}")
+    return dict(wall_ms=wall_ms, busy_ms=sum(dev_us(e) for e in kernels) / 1e3,
+                host_launches=launches, kernels=sum(e.count for e in kernels))
+
+
+def tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in module.leaves(tree).values())
+
+
+def check_tokens(finished, n_req: int, n_new: int, vocab: int) -> int:
+    if len(finished) != n_req or any(
+            len(r.out_tokens) != n_new or not all(0 <= t < vocab for t in r.out_tokens)
+            for r in finished):
+        raise AssertionError(f"{len(finished)} requests finished, expected "
+                             f"{n_req} x {n_new} tokens in [0, {vocab})")
+    return n_req * n_new
+
+
+def lm_serving() -> None:
+    t_phase = time.perf_counter()
+    phase("22. LM serving on the card: olmo-1b at full width")
+    cfg = lm_configs.get_config("olmo-1b")
+    engines: list = []
+
+    class RecordingEngine(ServeEngine):
+        """The engine ``launch.serve.main`` builds, kept for the later
+        checks: every decode step's member logits are screened for
+        finiteness on the card (one read at the end) and ``run`` is
+        timed."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+            engines.append(self)
+
+        def _step_decode(self, tokens, pos, members):
+            logits = super()._step_decode(tokens, pos, members)
+            self.finite &= torch.isfinite(logits[members]).all()
+            return logits
+
+        def run(self):
+            t0 = time.perf_counter()
+            out = super().run()
+            torch.cuda.synchronize()
+            self.run_s = time.perf_counter() - t0
+            return out
+
+    lm_serve.ServeEngine = RecordingEngine
+    try:
+        reset_launch_counts()
+        finished = lm_serve.main(["--arch", "olmo-1b", "--device", "cuda"])
+        counts = launch_counts()
+    finally:
+        lm_serve.ServeEngine = ServeEngine
+    eng = engines[0]
+    n_tok = check_tokens(finished, 8, 16, cfg.vocab_size)
+    if not bool(eng.finite) or fired(counts):
+        raise AssertionError(f"finite logits {bool(eng.finite)}, kernel "
+                             f"launches {fired(counts)} (none expected)")
+    params = eng.params  # the engine's bf16 copy, made once
+    n_params = sum(t.numel() for t in module.leaves(params).values())
+    print(f"served through repro_torch.launch.serve.main: {n_tok} tokens, "
+          f"{n_tok / eng.run_s:.1f} tokens/s over run() ({eng.run_s:.3f} s, "
+          f"4 slots), decode_calls {eng.decode_calls}; {n_params / 1e9:.3f} B "
+          f"parameters held as {params['layers']['mlp']['wo'].dtype} "
+          f"({tensor_bytes(params) / 1e9:.3f} GB); every logit finite, no "
+          "kernel launched")
+
+    # The decode step at 4 active slots, timed and profiled.
+    for uid in range(4):
+        eng.submit(Request(100 + uid, np.random.default_rng(100 + uid).integers(
+            0, cfg.vocab_size, 16).astype(np.int32), max_new_tokens=20))
+    eng.step()  # prefill the 4 slots, one batched decode
+    toks = np.zeros((4, 1), np.int32)
+    pos, members = eng.slot_pos.copy(), [0, 1, 2, 3]
+
+    def step():
+        ServeEngine._step_decode(eng, toks, pos, members)
+
+    for _ in range(3):
+        step()
+    step_ms = _events_ms(step, 20)
+    prof = profile_call(step)
+    t_cache = eng.cache["k"].shape[2]
+    cache_bytes = tensor_bytes(eng.cache)
+    flops = 2.0 * 4 * n_params + 4 * 4 * cfg.num_layers * cfg.num_heads * cfg.dh * t_cache
+    bound_ms, by = bound(flops, tensor_bytes(params) + cache_bytes, PEAK_BF16_FLOPS)
+    print(f"decode step, 4 slots at position {int(pos[0])}: {step_ms:.3f} ms "
+          f"(CUDA events, 20 steps); profiled: {prof['host_launches']} host "
+          f"launch calls, {prof['kernels']} device kernels, device busy "
+          f"{prof['busy_ms']:.3f} ms = {100 * prof['busy_ms'] / step_ms:.1f}% of "
+          f"the step; bound {bound_ms:.3f} ms ({by}: {tensor_bytes(params) / 1e9:.3f} "
+          f"GB of bf16 weights + {cache_bytes / 1e6:.1f} MB of cache read once)")
+    lm_parity(cfg, params)
+    lm_knn(cfg, params)
+    print(f"phase 22 wall time: {time.perf_counter() - t_phase:.1f} s")
+
+
+def greedy(params, cfg, prompt: np.ndarray, n_new: int, device):
+    """A direct ``decode_step`` greedy loop over one batch of prompts
+    (B, S): (tokens (B, n_new), the logits of every step, the cache)."""
+    b, s = prompt.shape
+    cache = tr.init_cache(cfg, b, s + n_new, device=device)
+    cur = torch.from_numpy(prompt[:, :1]).to(device)
+    out, logits = [], []
+    for t in range(s + n_new - 1):
+        lg, cache = tr.decode_step(params, cache, cur, t, cfg)
+        logits.append(lg[:, 0].float().cpu())
+        if t + 1 < s:
+            cur = torch.from_numpy(prompt[:, t + 1:t + 2]).to(device)
+        else:
+            cur = lg[:, -1].argmax(-1, keepdim=True)
+            out.append(cur[:, 0].cpu())
+    return torch.stack(out, 1), torch.stack(logits, 1), cache
+
+
+def lm_parity(cfg, params) -> None:
+    """(b): slots=1 engine = direct loop bit for bit (bf16, full width);
+    prefill + decode = forward in fp32 at full width; the card = the CPU
+    at 2 layers in fp32."""
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 16)).astype(np.int32)
+    one = ServeEngine(cfg, params, slots=1, max_len=24, device=DEV)
+    one.submit(Request(0, prompt[0], max_new_tokens=8))
+    got = one.run()[0].out_tokens
+    toks, _, cache = greedy(params, cfg, prompt, 8, DEV)
+    if got != toks[0].tolist() or not all(torch.equal(one.cache[k], cache[k])
+                                          for k in cache):
+        raise AssertionError(f"slots=1 engine {got} against direct greedy "
+                             f"{toks[0].tolist()} (or their caches differ)")
+    print(f"slots=1 engine = direct decode_step greedy loop bit for bit "
+          f"(tokens {got}, caches equal)")
+
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = module.init_params(tr.param_spec(cfg32), device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(1))
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(DEV)
+    with torch.inference_mode():
+        full, _ = tr.forward(p32, tokens, cfg32)
+        lp, cache = tr.prefill(p32, tokens[:, :-1], cfg32, max_len=16)
+        lg, _ = tr.decode_step(p32, cache, tokens[:, -1:], 15, cfg32)
+    for name, a, b in (("prefill", lp, full[:, :-1]), ("decode", lg[:, 0], full[:, -1])):
+        err = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=2e-3, atol=2e-4):
+            raise AssertionError(f"fp32 {name} against forward: max |diff| {err}")
+        print(f"fp32 full width, {name} against forward: max |diff| {err:.3g} "
+              "(rtol 2e-3, atol 2e-4)")
+    del p32, full, cache
+
+    cfg2 = cfg32.replace(num_layers=2)
+    p_cpu = module.init_params(tr.param_spec(cfg2), device="cpu",
+                               generator=torch.Generator().manual_seed(2))
+    p_dev = module.map_tree(lambda _, t: t.to(DEV), p_cpu)
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    with torch.inference_mode():
+        t_cpu, l_cpu, _ = greedy(p_cpu, cfg2, prompt, 8, "cpu")
+        t_dev, l_dev, _ = greedy(p_dev, cfg2, prompt, 8, DEV)
+        x = p_cpu["embed"]["tokens"][torch.from_numpy(prompt).long()]
+        pos = torch.arange(prompt.shape[1]).expand(prompt.shape)
+        for i in range(cfg2.num_layers):
+            x, _ = tr._block(tr._layer(p_cpu, i), x, cfg2, positions=pos)
+    err = float((l_dev - l_cpu).abs().max())
+    rms = float(l_cpu.pow(2).mean().sqrt())
+    if not torch.equal(t_dev, t_cpu) or err > LM_TOL_RMS * rms:
+        raise AssertionError(f"2 layers, fp32: card tokens {t_dev.tolist()}, CPU "
+                             f"{t_cpu.tolist()}; max |logit diff| {err}, logit "
+                             f"RMS {rms}")
+    print(f"2 layers, full width, fp32: card = CPU, tokens equal "
+          f"({t_dev.shape[1]} new per row), max |logit diff| over "
+          f"{l_dev.shape[1]} steps {err:.3g} = {err / rms:.3g} of the logits' "
+          f"RMS {rms:.3g} (tolerance {LM_TOL_RMS}); the prompt's residual "
+          f"stream before the final norm has RMS {float(x.pow(2).mean().sqrt()):.4g}")
+
+
+def lm_knn(cfg, params) -> None:
+    """(c): kNN attention at full width, 64 neighbours, past the cache's
+    first 64 keys; then a 1024-token prefill through the blocked tier."""
+    knn_cfg = cfg.replace(attention="knn", knn_neighbors=64)
+    calls = [0]
+    real = knn_attention.digc
+
+    def counting_digc(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    knn_attention.digc = counting_digc
+    try:
+        eng = ServeEngine(knn_cfg, params, slots=4, max_len=256 + 16 + 8, device=DEV)
+        for uid in range(4):
+            eng.submit(Request(uid, np.random.default_rng(200 + uid).integers(
+                0, cfg.vocab_size, 256).astype(np.int32), max_new_tokens=16))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        finished = eng.run()
+        serve_s = time.perf_counter() - t0
+        serve_counts = launch_counts()
+        n_tok = check_tokens(finished, 4, 16, cfg.vocab_size)
+        serve_calls, decode_calls = calls[0], eng.decode_calls
+        toks = np.zeros((4, 1), np.int32)
+        pos = np.full(4, 272, np.int32)
+        decode_ms = _events_ms(
+            lambda: ServeEngine._step_decode(eng, toks, pos, [0, 1, 2, 3]), 10)
+        prompt = torch.from_numpy(np.random.default_rng(300).integers(
+            0, cfg.vocab_size, (1, 1024)).astype(np.int32)).to(DEV)
+        with torch.inference_mode():
+            tr.prefill(params, prompt, knn_cfg)  # warm-up
+            calls[0] = 0
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = tr.prefill(params, prompt, knn_cfg)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_counts, prefill_calls = launch_counts(), calls[0]
+    finally:
+        knn_attention.digc = real
+    if (fired(serve_counts) or fired(prefill_counts) or serve_calls
+            or prefill_calls != cfg.num_layers
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(
+            f"kNN: launches {fired(serve_counts)} / {fired(prefill_counts)}, DIGC "
+            f"calls serving {serve_calls} (decode sorts), prefill {prefill_calls} "
+            f"(expected {cfg.num_layers}), finite {bool(torch.isfinite(logits).all())}")
+    print(f"kNN attention (64 neighbours): 4 requests x 256 prompt tokens + 16 "
+          f"new in {serve_s:.2f} s ({n_tok / serve_s:.1f} new tokens/s, "
+          f"{decode_calls} decode calls, no DIGC call: decode sorts one "
+          f"distance row a head); decode step at a 273-key cache {decode_ms:.3f} "
+          f"ms (CUDA events); prefill of 1024 tokens at B = 1: {prefill_ms:.2f} ms "
+          f"(host clock, after a warm-up), {prefill_calls} DIGC calls on the "
+          f"blocked tier (one a layer, {cfg.num_heads} heads each), no kernel launched")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -2623,6 +2915,7 @@ def main() -> None:
     lattice_per_n = lattice_serving()
     scheduler_phase()
     approx_serving()
+    lm_serving()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

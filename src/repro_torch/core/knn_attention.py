@@ -7,8 +7,12 @@ this is a sparse approximation of softmax attention. Softmax runs over
 the gathered keys' true dot-product logits; lanes whose DIGC distance is
 BIG (causally excluded) are masked out of it.
 
-``knn_attention_mha`` puts the heads in the batch dimension of one DIGC
-call. The LM layers that call these functions are not ported yet.
+``knn_attention_mha`` puts the heads (and any leading batch dimensions)
+in the batch dimension of one DIGC call: the LM's prefill
+(``models/layers.py::knn_attention_apply``) runs it on the ``blocked``
+tier, as JAX does. ``knn_attention_decode_rows`` is the LM's decode, one
+stable sort over the (B, H, T) distance rows, each row at its own cache
+length; ``knn_attention_decode`` is its single-row form.
 """
 
 from __future__ import annotations
@@ -63,15 +67,51 @@ def knn_attention_mha(
     scale: Optional[float] = None,
     **digc_kwargs,
 ) -> torch.Tensor:
-    """Multi-head KNN attention. q: (S, H, Dh), k/v: (T, H, Dh) ->
-    (S, H, Dh); one DIGC call with the heads as its batch."""
-    dh = q.shape[-1]
-    nn = min(num_neighbors, k.shape[0])
+    """Multi-head KNN attention. q: (..., S, H, Dh), k/v: (..., T, H, Dh)
+    -> (..., S, H, Dh); one DIGC call with the leading dimensions and the
+    heads as its batch."""
+    *lead, s, h, dh = q.shape
+    t = k.shape[-3]
+    nn = min(num_neighbors, t)
     scale = scale if scale is not None else dh**-0.5
-    qh, kh, vh = (t.transpose(0, 1).contiguous() for t in (q, k, v))
+
+    def rows(a, n):  # (..., n, H, Dh) -> (prod(...) * H, n, Dh), contiguous
+        return a.reshape(-1, n, h, dh).transpose(1, 2).contiguous().reshape(-1, n, dh)
+
+    qh, kh, vh = rows(q, s), rows(k, t), rows(v, t)
     idx, dist = digc(qh, kh, k=nn, causal=causal, impl=impl,
                      return_dists=True, **digc_kwargs)
-    return _attend(qh, kh, vh, idx, dist, scale).transpose(0, 1)
+    out = _attend(qh, kh, vh, idx, dist, scale)  # (G * H, S, Dh)
+    return out.reshape(-1, h, s, dh).transpose(1, 2).reshape(*lead, s, h, dh)
+
+
+def knn_attention_decode_rows(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len,
+    *,
+    num_neighbors: int,
+) -> torch.Tensor:
+    """Batched single-token decode: the nearest keys of each (row, head)
+    distance row, one stable sort over (B, H, T) (the lowest index wins a
+    tie, as ``lax.top_k``), then softmax over them. q: (B, H, Dh);
+    caches: (B, T, H, Dh); ``cache_len``: each row's valid prefix length,
+    (B,) or a scalar -> (B, H, Dh)."""
+    b, t, h, dh = k_cache.shape
+    nn = min(num_neighbors, t)
+    kh = k_cache.transpose(1, 2)  # (B, H, T, Dh)
+    vh = v_cache.transpose(1, 2)
+    d = ((kh - q[:, :, None, :]) ** 2).sum(-1)  # (B, H, T)
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = torch.arange(t, device=q.device)[None, :] < lens  # (B, T)
+    d = torch.where(valid[:, None, :], d, BIG)
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    g = b * h
+    out = _attend(q.reshape(g, 1, dh), kh.reshape(g, t, dh), vh.reshape(g, t, dh),
+                  idx.reshape(g, 1, t)[..., :nn], dist.reshape(g, 1, t)[..., :nn],
+                  dh**-0.5)
+    return out.reshape(b, h, dh)
 
 
 def knn_attention_decode(
@@ -82,19 +122,8 @@ def knn_attention_decode(
     *,
     num_neighbors: int,
 ) -> torch.Tensor:
-    """Single-token decode: the nearest keys of one distance row per head
-    (a stable sort: the lowest index wins a tie, as ``lax.top_k``), then
-    softmax over them. q: (H, Dh); caches: (T, H, Dh); ``cache_len``: the
-    valid prefix length."""
-    t, _, dh = k_cache.shape
-    nn = min(num_neighbors, t)
-    kh = k_cache.transpose(0, 1)  # (H, T, Dh)
-    vh = v_cache.transpose(0, 1)
-    d = ((kh - q[:, None, :]) ** 2).sum(-1)  # (H, T)
-    valid = torch.arange(t, device=q.device) < torch.as_tensor(cache_len,
-                                                               device=q.device)
-    d = torch.where(valid, d, BIG)
-    dist, idx = torch.sort(d, dim=-1, stable=True)
-    out = _attend(q[:, None], kh, vh, idx[:, None, :nn], dist[:, None, :nn],
-                  dh**-0.5)
-    return out[:, 0]
+    """Single-token decode of one row (``knn_attention_decode_rows`` at
+    B = 1). q: (H, Dh); caches: (T, H, Dh); ``cache_len``: the valid
+    prefix length."""
+    return knn_attention_decode_rows(q[None], k_cache[None], v_cache[None],
+                                     cache_len, num_neighbors=num_neighbors)[0]

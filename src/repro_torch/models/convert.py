@@ -1,16 +1,16 @@
-"""ViG parameters: the spec, a seeded init, and conversion from the JAX
-package's parameter tree; and the DIGC state's conversion to and from
-nested numpy arrays, the form a JAX ``DigcState`` takes on the host.
+"""Parameters: the ViG spec, a seeded init, and conversion from the JAX
+package's parameter trees (ViG and the decoder LM); and the DIGC state's
+conversion to and from nested numpy arrays, the form a JAX ``DigcState``
+takes on the host.
 
 Parameters are a nested dict of tensors with the JAX tree's structure and
-names (``params["stage0"]["block0"]["fc_in"]``). Every dense weight is
-stored (in, out), as in JAX, and applied as ``x @ W``.
+names (``params["stage0"]["block0"]["fc_in"]``,
+``params["layers"]["mix"]["wq"]``). Every dense weight is stored (in,
+out), as in JAX, and applied as ``x @ W``.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import math
 from typing import Any, Mapping
 
 import numpy as np
@@ -18,12 +18,8 @@ import torch
 
 from repro_torch.core.state import FIELDS, DigcState, DigcStateEntry
 from repro_torch.device import resolve_device
-
-
-@dataclasses.dataclass(frozen=True)
-class ParamSpec:
-    shape: tuple[int, ...]
-    init: str = "fanin"  # fanin | ones | normal
+from repro_torch.models import module, transformer
+from repro_torch.models.module import ParamSpec
 
 
 def _block_spec(d: int, ffn: int) -> dict:
@@ -81,28 +77,12 @@ def unflatten(flat: Mapping[str, Any]) -> dict:
     return tree
 
 
-def _init_leaf(s: ParamSpec, gen: torch.Generator) -> torch.Tensor:
-    """The JAX package's initializers (``models/module.py``): ones, normal
-    with sd 0.02, or fan-in normal with sd 1/sqrt(shape[0])."""
-    if s.init == "ones":
-        return torch.ones(s.shape)
-    if s.init == "normal":
-        return torch.randn(s.shape, generator=gen) * 0.02
-    if s.init == "fanin":
-        return torch.randn(s.shape, generator=gen) / math.sqrt(max(s.shape[0], 1))
-    raise ValueError(f"unknown init {s.init!r}")
-
-
 def init_params(cfg, *, generator: torch.Generator, device="cuda") -> dict:
-    """Seeded random parameters, drawn on the CPU from ``generator`` in
-    the tree's path order, then moved to ``device``. Different numbers
-    from JAX's init for the same seed: tests share weights through
-    ``params_from_numpy``."""
-    dev = resolve_device(device)
-    flat = flatten(vig_param_spec(cfg))
-    return unflatten({
-        path: _init_leaf(s, generator).to(dev) for path, s in sorted(flat.items())
-    })
+    """Seeded random parameters (``module.init_params`` over the spec).
+    Different numbers from JAX's init for the same seed: tests share
+    weights through ``params_from_numpy``."""
+    return module.init_params(vig_param_spec(cfg), generator=generator,
+                              device=device)
 
 
 def params_from_numpy(cfg, tree: Mapping, *, device="cuda") -> dict:
@@ -133,6 +113,37 @@ def params_to_numpy(params: Mapping) -> dict:
     return unflatten({
         path: t.detach().cpu().numpy() for path, t in flatten(params).items()
     })
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, *, device="cuda") -> dict:
+    """A JAX LM parameter tree as numpy arrays (``jax.tree.map(np.asarray,
+    init_params(tr.param_spec(cfg), key))``) -> the port's tree (fp32
+    tensors on ``device``, empty sub-dicts kept). Raises unless the tree
+    has exactly ``transformer.param_spec(cfg)``'s paths and shapes."""
+    dev = resolve_device(device)
+    want = module.leaves(transformer.param_spec(cfg))
+    got = module.leaves(tree)
+    if set(got) != set(want):
+        raise ValueError(
+            f"parameter tree does not match {cfg.name!r}: missing "
+            f"{sorted('/'.join(p) for p in set(want) - set(got))}, unexpected "
+            f"{sorted('/'.join(p) for p in set(got) - set(want))}"
+        )
+
+    def one(path, s):
+        arr = np.asarray(got[path], dtype=np.float32)
+        if arr.shape != s.shape:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, "
+                             f"expected {s.shape}")
+        return torch.from_numpy(arr.copy()).to(dev)
+
+    return module.map_tree(one, transformer.param_spec(cfg))
+
+
+def lm_params_to_numpy(params: Mapping) -> dict:
+    """The port's LM parameters -> the JAX tree's layout as numpy arrays
+    (fp32)."""
+    return module.map_tree(lambda _, t: t.detach().float().cpu().numpy(), params)
 
 
 def state_from_numpy(tree: Mapping, *, device="cuda") -> DigcState:

@@ -1,5 +1,18 @@
-"""Multi-tenant bucketed ViG inference (port of the request path of
-``repro/serve/engine.py::VigServeEngine``).
+"""Batched serving engines (port of ``repro/serve/engine.py``).
+
+``ServeEngine``: LM greedy decoding over fixed batch slots
+(continuous-batching-lite). A request takes a free slot, its prompt is
+fed token by token through ``decode_step`` (the cache layout decode
+uses), and each tick decodes every active slot in one call with the
+per-slot position vector. Each call commits only its member rows: their
+new keys and values are written into the engine's cache in place (where
+JAX merges rows under a mask and donates the cache), so a slot that is
+not a member, prefilling or idle, keeps its cache bit for bit. The engine
+holds its parameters in the config's compute dtype (one cast, made when
+it is built) and decodes eagerly.
+
+``VigServeEngine``: multi-tenant bucketed ViG inference (the request path
+of JAX's ``VigServeEngine``).
 
 Requests occupy fixed slots (``slots = max(buckets)``). Each tick gathers
 the queued requests' slots, one lane per tenant, pads the batch to the
@@ -102,6 +115,8 @@ from repro_torch.core.state import FIELDS, DigcState, prefetch_park_rows
 from repro_torch.core.tuner import DigcTuner, VigSchedule, optimal_bucket_set
 from repro_torch.device import resolve_device
 from repro_torch.kernels import add_launch_counts, uncounted_launches
+from repro_torch.models import transformer as tr
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.vig import (
     count_digc_work,
     init_vig_state,
@@ -109,6 +124,113 @@ from repro_torch.models.vig import (
     vig_forward,
     vig_stage_plans,
 )
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new_tokens: int = 16
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Greedy-decoding engine over the functional model API."""
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
+                 max_len: int = 512, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = tr.compute_params(params, cfg, device=self.device)
+        self.slots = slots
+        self.max_len = max_len
+        self.cache = tr.init_cache(cfg, slots, max_len, device=self.device)
+        self.slot_req: list[Optional[Request]] = [None] * slots
+        self.slot_pos = np.zeros(slots, np.int32)
+        self.queue: list[Request] = []
+        self.decode_calls = 0  # observability: decode steps issued
+
+    def submit(self, req: Request):
+        if len(req.prompt) == 0:
+            raise ValueError(
+                f"request {req.uid}: empty prompt (prefill needs at "
+                "least one token to produce a next-token distribution)"
+            )
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.uid}: max_new_tokens must be >= 1 "
+                "(prefill always emits the first token)"
+            )
+        self.queue.append(req)
+
+    def _step_decode(self, tokens, pos, members: list[int]):
+        """One decode step committing only ``members``' cache rows, in
+        place. ``pos`` is the (slots,) per-slot position vector: a single
+        call serves arbitrarily mixed-length slots."""
+        self.decode_calls += 1
+        dev = self.device
+        logits, self.cache = tr.decode_step(
+            self.params, self.cache, torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(pos, device=dev), self.cfg,
+            rows=torch.as_tensor(members, dtype=torch.long, device=dev),
+        )
+        return logits
+
+    def _prefill_one(self, slot: int, req: Request):
+        """Feed the prompt through decode steps (token-by-token prefill;
+        simple and cache-layout-identical to decode). Only this slot's
+        cache rows are written: other slots may be mid-decode at
+        overlapping positions."""
+        for t, tok in enumerate(req.prompt):
+            tokens = np.zeros((self.slots, 1), np.int32)
+            tokens[slot, 0] = tok
+            logits = self._step_decode(
+                tokens, np.full(self.slots, t, np.int32), [slot]
+            )
+        self.slot_pos[slot] = len(req.prompt)
+        req.out_tokens.append(int(logits[slot, -1].argmax()))
+        if len(req.out_tokens) >= req.max_new_tokens:
+            req.done = True  # budget met by the prefill token itself
+
+    def step(self) -> int:
+        """One engine tick: refill slots, one decode step for the whole
+        batch. Returns number of active requests."""
+        for s in range(self.slots):
+            if self.slot_req[s] is None or self.slot_req[s].done:
+                if self.queue:
+                    req = self.queue.pop(0)
+                    self.slot_req[s] = req
+                    self._prefill_one(s, req)
+        active = [s for s in range(self.slots)
+                  if self.slot_req[s] is not None and not self.slot_req[s].done]
+        if not active:
+            return 0
+        # batch decode: every active slot advances one token
+        tokens = np.zeros((self.slots, 1), np.int32)
+        for s in active:
+            tokens[s, 0] = self.slot_req[s].out_tokens[-1]
+        logits = self._step_decode(tokens, self.slot_pos.copy(), active)
+        nxt = logits[:, -1].argmax(-1).tolist()  # one device read a tick
+        for s in active:
+            req = self.slot_req[s]
+            req.out_tokens.append(nxt[s])
+            self.slot_pos[s] += 1
+            if len(req.out_tokens) >= req.max_new_tokens:
+                req.done = True
+        return len(active)
+
+    def run(self) -> list[Request]:
+        finished: list[Request] = []
+        while self.queue or any(
+            r is not None and not r.done for r in self.slot_req
+        ):
+            self.step()
+            for s, r in enumerate(self.slot_req):
+                if r is not None and r.done:
+                    finished.append(r)
+                    self.slot_req[s] = None
+        return finished
 
 
 @dataclasses.dataclass

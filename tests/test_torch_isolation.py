@@ -14,8 +14,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.models import convert, vig  # noqa: E402
-from repro_torch.serve.engine import VigServeEngine  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.models import convert, module, transformer, vig  # noqa: E402
+from repro_torch.serve.engine import ServeEngine, VigServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -41,7 +42,10 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.kernels.ops" in out["modules"]
-    assert "repro_torch.serve.engine" in out["modules"]
+    for name in ("repro_torch.serve.engine", "repro_torch.models.transformer",
+                 "repro_torch.launch.serve", "repro_torch.configs",
+                 "repro_torch.configs.olmo_1b"):
+        assert name in out["modules"]
     assert out["bad"] == []
 
 
@@ -62,6 +66,18 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
         VigServeEngine(cfg, params)
     eng = VigServeEngine(cfg, params, device="cpu")
     assert eng.infer(np.zeros((1, 16, 16, 3), np.float32)).shape == (1, 2)
+    lm = get_smoke("olmo-1b")
+    spec = transformer.param_spec(lm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.init_params(spec, generator=gen)
+    lm_params = module.init_params(spec, generator=gen, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(lm, lm_params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_cache(lm, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.lm_params_from_numpy(lm, convert.lm_params_to_numpy(lm_params))
+    assert ServeEngine(lm, lm_params, device="cpu").cache["k"].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
