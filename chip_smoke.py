@@ -155,12 +155,30 @@ Phases, each printed as it runs; any failure exits non-zero:
     greedy decode logits against the CPU's (max |diff| within 1e-2 of the
     logits' RMS) with equal tokens; (c) ``attention="knn"`` with 64 neighbours: 4 requests of 256
     prompt tokens and 16 new ones, then one ``prefill`` of 1024 tokens
-    timed, its DIGC calls counted, no kernel launched.
+    timed, its DIGC calls counted, no kernel launched;
+23. the MoE family (plain PyTorch, no kernel of its own: JAX's MoE and MLA
+    are einsums and ``lax.top_k``): ``deepseek-v2-lite-16b`` at full width
+    (27 layers, d_model 2048, 16 heads, MLA kv_lora 512, qk 128 + 64, v
+    128; 64 experts top-6 of d_expert 1408 and 2 shared; vocab 102400;
+    bf16, 16.21 B parameters drawn on the card straight into the compute
+    dtypes) through ``launch.serve.main``'s defaults: every token in
+    range, every logit finite, no kernel launched; tokens/s, decode
+    calls, the parameters' count and bytes, the peak memory allocated;
+    the decode step at 4 slots by CUDA events and profiled, beside two
+    bounds: the dense form's (every expert read) and a routed form's (the
+    experts this step's tokens select); a ``slots=1`` engine bit for bit
+    the direct greedy loop (tokens, ``c_kv`` and ``k_pe``); then, the bf16
+    engine freed, fp32 ``prefill`` + ``decode_step`` against ``forward``
+    at 4 layers (rtol 2e-3, atol 2e-4) and the card against the CPU at 2
+    layers (tokens equal, logits within ``LM_TOL_RMS``); last,
+    ``qwen3-moe-235b-a22b`` at full width and 2 layers (128 experts top-8,
+    GQA with qk-norm): a short served run with finite logits, its step.
 
 Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
-tier, which must launch none; so do phase 21's cluster engines). A
+tier, which must launch none; so do phase 21's cluster engines and the LM
+phases 22 and 23). A
 replayed graph adds the launches its capture recorded. Every engine
 outside phases 17 and 21 (c) must end with
 ``fallback_level`` 0 and no logged fault. The line before the last is the kernel summary
@@ -171,6 +189,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -202,7 +221,7 @@ from repro_torch.serve.engine import VigRequest, VigServeEngine  # noqa: E402
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.core import knn_attention  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
-from repro_torch.models import module, transformer as tr  # noqa: E402
+from repro_torch.models import module, moe, transformer as tr  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sched import VirtualClock, arrival_trace, replay  # noqa: E402
 
@@ -2677,60 +2696,76 @@ def check_tokens(finished, n_req: int, n_new: int, vocab: int) -> int:
     return n_req * n_new
 
 
-def lm_serving() -> None:
-    t_phase = time.perf_counter()
-    phase("22. LM serving on the card: olmo-1b at full width")
-    cfg = lm_configs.get_config("olmo-1b")
-    engines: list = []
+class FiniteEngine(ServeEngine):
+    """The LM engine with every decode step's member logits screened for
+    finiteness on the card (one read at the end) and ``run`` timed."""
 
-    class RecordingEngine(ServeEngine):
-        """The engine ``launch.serve.main`` builds, kept for the later
-        checks: every decode step's member logits are screened for
-        finiteness on the card (one read at the end) and ``run`` is
-        timed."""
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.finite = torch.ones((), dtype=torch.bool, device=self.device)
 
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            self.finite = torch.ones((), dtype=torch.bool, device=self.device)
-            engines.append(self)
+    def _step_decode(self, tokens, pos, members):
+        logits = super()._step_decode(tokens, pos, members)
+        self.finite &= torch.isfinite(logits[members]).all()
+        return logits
 
-        def _step_decode(self, tokens, pos, members):
-            logits = super()._step_decode(tokens, pos, members)
-            self.finite &= torch.isfinite(logits[members]).all()
-            return logits
+    def run(self):
+        t0 = time.perf_counter()
+        out = super().run()
+        torch.cuda.synchronize()
+        self.run_s = time.perf_counter() - t0
+        return out
 
-        def run(self):
-            t0 = time.perf_counter()
-            out = super().run()
-            torch.cuda.synchronize()
-            self.run_s = time.perf_counter() - t0
-            return out
 
-    lm_serve.ServeEngine = RecordingEngine
-    try:
-        reset_launch_counts()
-        finished = lm_serve.main(["--arch", "olmo-1b", "--device", "cuda"])
-        counts = launch_counts()
-    finally:
-        lm_serve.ServeEngine = ServeEngine
-    eng = engines[0]
-    n_tok = check_tokens(finished, 8, 16, cfg.vocab_size)
+def served_tokens(eng: FiniteEngine, finished, counts: dict, n_req: int,
+                  n_new: int, how: str) -> None:
+    """Checks a served run (tokens in range, every logit finite, no kernel
+    launched) and prints its tokens/s."""
+    n_tok = check_tokens(finished, n_req, n_new, eng.cfg.vocab_size)
     if not bool(eng.finite) or fired(counts):
         raise AssertionError(f"finite logits {bool(eng.finite)}, kernel "
                              f"launches {fired(counts)} (none expected)")
-    params = eng.params  # the engine's bf16 copy, made once
+    params = eng.params  # the compute-dtype tree
     n_params = sum(t.numel() for t in module.leaves(params).values())
-    print(f"served through repro_torch.launch.serve.main: {n_tok} tokens, "
+    print(f"served through {how}: {n_tok} tokens, "
           f"{n_tok / eng.run_s:.1f} tokens/s over run() ({eng.run_s:.3f} s, "
-          f"4 slots), decode_calls {eng.decode_calls}; {n_params / 1e9:.3f} B "
-          f"parameters held as {params['layers']['mlp']['wo'].dtype} "
+          f"{eng.slots} slots), decode_calls {eng.decode_calls}; "
+          f"{n_params / 1e9:.3f} B parameters held as "
+          f"{sorted({str(t.dtype) for t in module.leaves(params).values()})} "
           f"({tensor_bytes(params) / 1e9:.3f} GB); every logit finite, no "
           "kernel launched")
 
-    # The decode step at 4 active slots, timed and profiled.
+
+def served_through_main(arch: str) -> FiniteEngine:
+    """``launch.serve.main`` at full width on the card with its defaults (8
+    requests, 16 prompt and 16 new tokens, 4 slots), through a
+    ``FiniteEngine`` patched into ``launch.serve``; returns the engine."""
+    engines: list = []
+
+    class Kept(FiniteEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            engines.append(self)
+
+    lm_serve.ServeEngine = Kept
+    try:
+        reset_launch_counts()
+        finished = lm_serve.main(["--arch", arch, "--device", "cuda"])
+        counts = launch_counts()
+    finally:
+        lm_serve.ServeEngine = ServeEngine
+    eng = engines.pop()  # no cycle through Kept's closure keeps it alive
+    served_tokens(eng, finished, counts, 8, 16, "repro_torch.launch.serve.main")
+    return eng
+
+
+def timed_decode_step(eng: ServeEngine):
+    """The engine's decode step at 4 active slots (4 new requests of 16
+    prompt tokens prefilled): (ms by CUDA events over 20 steps, one
+    profiled step, the slots' positions, the step)."""
     for uid in range(4):
         eng.submit(Request(100 + uid, np.random.default_rng(100 + uid).integers(
-            0, cfg.vocab_size, 16).astype(np.int32), max_new_tokens=20))
+            0, eng.cfg.vocab_size, 16).astype(np.int32), max_new_tokens=20))
     eng.step()  # prefill the 4 slots, one batched decode
     toks = np.zeros((4, 1), np.int32)
     pos, members = eng.slot_pos.copy(), [0, 1, 2, 3]
@@ -2740,19 +2775,35 @@ def lm_serving() -> None:
 
     for _ in range(3):
         step()
-    step_ms = _events_ms(step, 20)
-    prof = profile_call(step)
+    return _events_ms(step, 20), profile_call(step), pos, step
+
+
+def step_line(step_ms: float, prof: dict, pos) -> str:
+    return (f"decode step, 4 slots at position {int(pos[0])}: {step_ms:.3f} ms "
+            f"(CUDA events, 20 steps); profiled: {prof['host_launches']} host "
+            f"launch calls, {prof['kernels']} device kernels, device busy "
+            f"{prof['busy_ms']:.3f} ms = {100 * prof['busy_ms'] / step_ms:.1f}% "
+            "of the step")
+
+
+def lm_serving() -> None:
+    t_phase = time.perf_counter()
+    phase("22. LM serving on the card: olmo-1b at full width")
+    cfg = lm_configs.get_config("olmo-1b")
+    eng = served_through_main("olmo-1b")
+    params = eng.params
+    n_params = sum(t.numel() for t in module.leaves(params).values())
+    step_ms, prof, pos, _ = timed_decode_step(eng)
     t_cache = eng.cache["k"].shape[2]
     cache_bytes = tensor_bytes(eng.cache)
     flops = 2.0 * 4 * n_params + 4 * 4 * cfg.num_layers * cfg.num_heads * cfg.dh * t_cache
     bound_ms, by = bound(flops, tensor_bytes(params) + cache_bytes, PEAK_BF16_FLOPS)
-    print(f"decode step, 4 slots at position {int(pos[0])}: {step_ms:.3f} ms "
-          f"(CUDA events, 20 steps); profiled: {prof['host_launches']} host "
-          f"launch calls, {prof['kernels']} device kernels, device busy "
-          f"{prof['busy_ms']:.3f} ms = {100 * prof['busy_ms'] / step_ms:.1f}% of "
-          f"the step; bound {bound_ms:.3f} ms ({by}: {tensor_bytes(params) / 1e9:.3f} "
-          f"GB of bf16 weights + {cache_bytes / 1e6:.1f} MB of cache read once)")
-    lm_parity(cfg, params)
+    print(f"{step_line(step_ms, prof, pos)}; bound {bound_ms:.3f} ms ({by}: "
+          f"{tensor_bytes(params) / 1e9:.3f} GB of bf16 weights + "
+          f"{cache_bytes / 1e6:.1f} MB of cache read once)")
+    engine_equals_greedy(cfg, params)
+    fp32_prefill_decode(cfg.replace(dtype="float32"))
+    card_equals_cpu(cfg.replace(dtype="float32", num_layers=2))
     lm_knn(cfg, params)
     print(f"phase 22 wall time: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2775,10 +2826,9 @@ def greedy(params, cfg, prompt: np.ndarray, n_new: int, device):
     return torch.stack(out, 1), torch.stack(logits, 1), cache
 
 
-def lm_parity(cfg, params) -> None:
-    """(b): slots=1 engine = direct loop bit for bit (bf16, full width);
-    prefill + decode = forward in fp32 at full width; the card = the CPU
-    at 2 layers in fp32."""
+def engine_equals_greedy(cfg, params) -> None:
+    """A slots=1 engine bit for bit a direct ``decode_step`` greedy loop:
+    tokens and every cache entry (keys and values, or MLA's latents)."""
     prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 16)).astype(np.int32)
     one = ServeEngine(cfg, params, slots=1, max_len=24, device=DEV)
     one.submit(Request(0, prompt[0], max_new_tokens=8))
@@ -2789,13 +2839,16 @@ def lm_parity(cfg, params) -> None:
         raise AssertionError(f"slots=1 engine {got} against direct greedy "
                              f"{toks[0].tolist()} (or their caches differ)")
     print(f"slots=1 engine = direct decode_step greedy loop bit for bit "
-          f"(tokens {got}, caches equal)")
+          f"(tokens {got}, caches {sorted(cache)} equal)")
 
-    cfg32 = cfg.replace(dtype="float32")
+
+def fp32_prefill_decode(cfg32) -> None:
+    """In fp32 on the card, ``prefill`` + one ``decode_step`` against
+    ``forward`` at JAX's tolerance (rtol 2e-3, atol 2e-4)."""
     p32 = module.init_params(tr.param_spec(cfg32), device=DEV,
                              generator=torch.Generator(device=DEV).manual_seed(1))
     tokens = torch.from_numpy(np.random.default_rng(8).integers(
-        0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(DEV)
+        0, cfg32.vocab_size, (2, 16)).astype(np.int32)).to(DEV)
     with torch.inference_mode():
         full, _ = tr.forward(p32, tokens, cfg32)
         lp, cache = tr.prefill(p32, tokens[:, :-1], cfg32, max_len=16)
@@ -2804,29 +2857,32 @@ def lm_parity(cfg, params) -> None:
         err = float((a - b).abs().max())
         if not torch.allclose(a, b, rtol=2e-3, atol=2e-4):
             raise AssertionError(f"fp32 {name} against forward: max |diff| {err}")
-        print(f"fp32 full width, {name} against forward: max |diff| {err:.3g} "
-              "(rtol 2e-3, atol 2e-4)")
-    del p32, full, cache
+        print(f"fp32 full width, {cfg32.num_layers} layers, {name} against "
+              f"forward: max |diff| {err:.3g} (rtol 2e-3, atol 2e-4)")
 
-    cfg2 = cfg32.replace(num_layers=2)
-    p_cpu = module.init_params(tr.param_spec(cfg2), device="cpu",
-                               generator=torch.Generator().manual_seed(2))
-    p_dev = module.map_tree(lambda _, t: t.to(DEV), p_cpu)
-    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+
+def card_equals_cpu(cfg2) -> None:
+    """At a few layers, full width, fp32: the card's greedy decode equals
+    the CPU's (tokens equal, logits within LM_TOL_RMS of their RMS).
+    Drawn on the card, copied to the host."""
+    p_dev = module.init_params(tr.param_spec(cfg2), device=DEV,
+                               generator=torch.Generator(device=DEV).manual_seed(2))
+    p_cpu = module.map_tree(lambda _, t: t.cpu(), p_dev)
+    prompt = np.random.default_rng(9).integers(0, cfg2.vocab_size, (2, 8)).astype(np.int32)
     with torch.inference_mode():
         t_cpu, l_cpu, _ = greedy(p_cpu, cfg2, prompt, 8, "cpu")
         t_dev, l_dev, _ = greedy(p_dev, cfg2, prompt, 8, DEV)
         x = p_cpu["embed"]["tokens"][torch.from_numpy(prompt).long()]
         pos = torch.arange(prompt.shape[1]).expand(prompt.shape)
         for i in range(cfg2.num_layers):
-            x, _ = tr._block(tr._layer(p_cpu, i), x, cfg2, positions=pos)
+            x, _, _ = tr._block(tr._layer(p_cpu, i), x, cfg2, positions=pos)
     err = float((l_dev - l_cpu).abs().max())
     rms = float(l_cpu.pow(2).mean().sqrt())
     if not torch.equal(t_dev, t_cpu) or err > LM_TOL_RMS * rms:
-        raise AssertionError(f"2 layers, fp32: card tokens {t_dev.tolist()}, CPU "
-                             f"{t_cpu.tolist()}; max |logit diff| {err}, logit "
-                             f"RMS {rms}")
-    print(f"2 layers, full width, fp32: card = CPU, tokens equal "
+        raise AssertionError(f"{cfg2.num_layers} layers, fp32: card tokens "
+                             f"{t_dev.tolist()}, CPU {t_cpu.tolist()}; max "
+                             f"|logit diff| {err}, logit RMS {rms}")
+    print(f"{cfg2.num_layers} layers, full width, fp32: card = CPU, tokens equal "
           f"({t_dev.shape[1]} new per row), max |logit diff| over "
           f"{l_dev.shape[1]} steps {err:.3g} = {err / rms:.3g} of the logits' "
           f"RMS {rms:.3g} (tolerance {LM_TOL_RMS}); the prompt's residual "
@@ -2891,6 +2947,139 @@ def lm_knn(cfg, params) -> None:
           f"blocked tier (one a layer, {cfg.num_heads} heads each), no kernel launched")
 
 
+# Phase 23: the MoE family. deepseek-v2-lite-16b (MLA + MoE, 16.21 B
+# parameters) is the one MoE arch a single card holds whole in bf16; the
+# fp32 checks run at reduced depth after its engine is freed.
+DEEPSEEK_FP32_LAYERS = 4
+
+
+def routed_layers(step) -> list:
+    """``step()`` once with ``models.moe._router`` recording each MoE
+    layer's selected experts: the distinct experts of each layer."""
+    routes, real = [], moe._router
+
+    def record(*args):
+        out = real(*args)
+        routes.append(out[1])
+        return out
+
+    moe._router = record
+    try:
+        step()
+    finally:
+        moe._router = real
+    return [int(torch.unique(r).numel()) for r in routes]
+
+
+def expert_products(cfg, mlp: dict) -> None:
+    """The dense form's three batched expert products of one layer at 4
+    tokens, by CUDA events (the same calls as ``moe._dense_moe``): ms and
+    the rate at which they read the layer's expert weights."""
+    layer = {w: mlp[w][0] for w in ("w_gate", "w_up", "w_down")}
+    x = torch.randn(4, cfg.d_model, device=DEV, dtype=cfg.compute_dtype)
+
+    def products():
+        h = torch.nn.functional.silu(x @ layer["w_gate"]) * (x @ layer["w_up"])
+        return h @ layer["w_down"]
+
+    for _ in range(3):
+        products()
+    ms = _events_ms(products, 20)
+    nbytes = tensor_bytes(layer)
+    print(f"one layer's expert products (3 batched products over "
+          f"{cfg.moe.num_experts} experts, 4 tokens): {ms:.3f} ms (CUDA "
+          f"events, 20 calls) for {nbytes / 1e9:.3f} GB of bf16 weights = "
+          f"{nbytes / ms / 1e9:.3f} TB/s; x {cfg.num_layers} layers = "
+          f"{ms * cfg.num_layers:.3f} ms a step")
+
+
+def moe_serving() -> None:
+    t_phase = time.perf_counter()
+    phase("23. MoE and MLA on the card: deepseek-v2-lite-16b at full width")
+    cfg = lm_configs.get_config("deepseek-v2-lite-16b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng = served_through_main(cfg.name)
+    peak, cap = (torch.cuda.max_memory_allocated(),
+                 torch.cuda.get_device_properties(0).total_memory)
+    params = eng.params
+    if peak >= cap:
+        raise AssertionError(f"peak memory {peak} past the card's {cap}")
+    print(f"peak device memory allocated (init, engine, serving): "
+          f"{(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
+          f"before the phase; {peak / 1e9:.3f} GB of the card's "
+          f"{cap / 1e9:.3f} GB in all")
+
+    # The decode step at 4 slots against two bounds: the dense form reads
+    # every expert; a routed form would read only the experts this step's
+    # tokens select (counted from its routing).
+    step_ms, prof, pos, step = timed_decode_step(eng)
+    distinct = routed_layers(step)
+    m, n_layers = cfg.moe, cfg.num_layers
+    mlp = params["layers"]["mlp"]
+    n_params = sum(t.numel() for t in module.leaves(params).values())
+    experts = {w: mlp[w] for w in ("w_gate", "w_up", "w_down")}
+    expert_params = sum(t.numel() for t in experts.values())
+    expert_bytes = tensor_bytes(experts)
+    cache_bytes = tensor_bytes(eng.cache)
+    t_cache = eng.cache["c_kv"].shape[2]
+    attn = 4 * 4 * n_layers * cfg.num_heads * t_cache * (
+        cfg.mla.kv_lora + cfg.mla.qk_rope_dim)
+    dense_ms, dense_by = bound(2.0 * 4 * n_params + attn,
+                               tensor_bytes(params) + cache_bytes, PEAK_BF16_FLOPS)
+    share = sum(distinct) / (m.num_experts * n_layers)
+    routed_ms, routed_by = bound(
+        2.0 * 4 * (n_params - expert_params * (1 - m.top_k / m.num_experts)) + attn,
+        tensor_bytes(params) - expert_bytes * (1 - share) + cache_bytes,
+        PEAK_BF16_FLOPS)
+    print(f"{step_line(step_ms, prof, pos)}; bound, dense form (every expert "
+          f"read): {dense_ms:.3f} ms ({dense_by}: {tensor_bytes(params) / 1e9:.3f} "
+          f"GB of weights + {cache_bytes / 1e6:.1f} MB of latent cache), "
+          f"{100 * dense_ms / step_ms:.1f}% of the step; bound, routed form: "
+          f"{routed_ms:.3f} ms ({routed_by}: {sum(distinct) / n_layers:.1f} of "
+          f"{m.num_experts} experts a layer on this step's routing, "
+          f"{min(distinct)}-{max(distinct)}), {100 * routed_ms / step_ms:.1f}% "
+          f"of the step")
+    expert_products(cfg, mlp)
+    engine_equals_greedy(cfg, params)
+    del eng, params, mlp, experts, step  # the fp32 checks need the room
+    torch.cuda.empty_cache()
+    fp32_prefill_decode(cfg.replace(dtype="float32", num_layers=DEEPSEEK_FP32_LAYERS))
+    torch.cuda.empty_cache()
+    card_equals_cpu(cfg.replace(dtype="float32", num_layers=2))
+    torch.cuda.empty_cache()
+    qwen3_moe_two_layers()
+    print(f"phase 23 wall time: {time.perf_counter() - t_phase:.1f} s")
+
+
+def qwen3_moe_two_layers() -> None:
+    """qwen3-moe-235b-a22b at full width and 2 layers (routed MoE, 128
+    experts top-8, GQA 64 / 4 with qk-norm, no MLA), bf16, drawn in the
+    compute dtypes on the card: a short served run, then its step."""
+    cfg = lm_configs.get_config("qwen3-moe-235b-a22b").replace(num_layers=2)
+    params = module.init_params(
+        tr.param_spec(cfg), device=DEV,
+        generator=torch.Generator(device=DEV).manual_seed(3),
+        dtype_of=lambda path: tr.compute_dtype(path, cfg))
+    eng = FiniteEngine(cfg, params, slots=4, max_len=40, device=DEV)
+    for uid in range(4):
+        eng.submit(Request(uid, np.random.default_rng(400 + uid).integers(
+            0, cfg.vocab_size, 8).astype(np.int32), max_new_tokens=8))
+    reset_launch_counts()
+    finished = eng.run()
+    served_tokens(eng, finished, launch_counts(), 4, 8,
+                  f"ServeEngine ({cfg.name}, {cfg.num_layers} layers)")
+    step_ms, prof, pos, _ = timed_decode_step(eng)
+    n_params = sum(t.numel() for t in module.leaves(params).values())
+    bound_ms, by = bound(2.0 * 4 * n_params,
+                         tensor_bytes(params) + tensor_bytes(eng.cache),
+                         PEAK_BF16_FLOPS)
+    print(f"{cfg.name}, 2 layers: {step_line(step_ms, prof, pos)}; bound "
+          f"{bound_ms:.3f} ms ({by}, every expert read)")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -2916,6 +3105,7 @@ def main() -> None:
     scheduler_phase()
     approx_serving()
     lm_serving()
+    moe_serving()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

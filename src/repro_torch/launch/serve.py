@@ -5,7 +5,11 @@
         --requests 8 --slots 4
 
 Weights are drawn by ``models.module.init_params`` from a seeded
-``torch.Generator`` on the serving device; nothing is downloaded.
+``torch.Generator`` on the serving device, straight into the compute
+tree's dtypes (bf16 weights, fp32 norms and router) one slice at a time,
+so no fp32 tree exists beside the one the engine serves: that is what
+lets one card hold ``deepseek-v2-lite-16b`` whole. Nothing is
+downloaded.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.launch.api import get_api
+from repro_torch.models import transformer as tr
 from repro_torch.models.module import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -40,11 +45,15 @@ def main(argv=None):
     api = get_api(cfg)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(api.param_spec(), generator=gen, device=dev)
+    params = init_params(api.param_spec(), generator=gen, device=dev,
+                         dtype_of=lambda path: tr.compute_dtype(path, cfg))
     max_len = args.max_len or (args.prompt_len + args.new_tokens + 8)
     engine = ServeEngine(cfg, params, slots=args.slots, max_len=max_len,
                          device=dev)
-    del params  # the engine holds its compute-dtype copy
+    del params  # the engine holds these same tensors (no copy: dtypes match)
+    if dev.type == "cuda":
+        print(f"peak device memory allocated after the engine is built: "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
 
     rng = np.random.default_rng(args.seed)
     for uid in range(args.requests):

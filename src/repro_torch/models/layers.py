@@ -1,8 +1,8 @@
 """Layer library of the decoder LM (port of ``repro/models/layers.py``):
 norms, rotary embeddings (standard and M-RoPE), embedding, MLPs, and
 grouped-query attention (full, local, KNN). Pure functions over param
-dicts from ``module.ParamSpec``; the MLA layer and sinusoidal positions
-wait for their families.
+dicts from ``module.ParamSpec``; the MLA layer is ``models/mla.py``,
+sinusoidal positions wait for their family.
 
 Weights are cast to the config's compute dtype at each use, as JAX casts
 them; a tree already in that dtype (``transformer.compute_params``) makes
@@ -260,14 +260,14 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).long().reshape(-1).expand(b)
 
 
-def _write_rows(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                slot: torch.Tensor, rows) -> None:
-    """Write row r's new key/value (B, 1, KVH, dh) at cache slot
-    ``slot[r]`` in place, for the rows ``rows`` names (all when None)."""
+def _write_rows(cache: dict, new: dict, slot: torch.Tensor, rows) -> None:
+    """Write row r's new entries (``new[name]`` (B, 1, ...), e.g. the key
+    and value) at cache slot ``slot[r]`` of ``cache[name]`` in place, for
+    the rows ``rows`` names (all when None)."""
     if rows is None:
-        rows = torch.arange(k_new.shape[0], device=k_new.device)
-    cache["k"][rows, slot[rows]] = k_new[rows, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot[rows]] = v_new[rows, 0].to(cache["v"].dtype)
+        rows = torch.arange(slot.shape[0], device=slot.device)
+    for name, t in new.items():
+        cache[name][rows, slot[rows]] = t[rows, 0].to(cache[name].dtype)
 
 
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
@@ -297,7 +297,7 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     t = cache["k"].shape[1]
     pv = _pos_vector(pos, b, q.device)
     sv = pv % t if window > 0 else pv  # rolling buffer for local attention
-    _write_rows(cache, k_new, v_new, sv, rows)
+    _write_rows(cache, {"k": k_new, "v": v_new}, sv, rows)
     qg = q.reshape(b, 1, kvh, g, cfg.dh)
     logits = torch.einsum(
         "bqkgd,btkd->bkgqt", qg, cache["k"].to(dt)
@@ -333,7 +333,7 @@ def knn_attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                                 causal=True)
         return _out_proj(out, params["wo"], dt), (k, v)
     pv = _pos_vector(pos, q.shape[0], q.device)
-    _write_rows(cache, k, v, pv, rows)
+    _write_rows(cache, {"k": k, "v": v}, pv, rows)
     kk = _repeat_kv(cache["k"].to(dt), cfg.num_heads)
     vv = _repeat_kv(cache["v"].to(dt), cfg.num_heads)
     out = knn_attention_decode_rows(q[:, 0], kk, vv, pv + 1,

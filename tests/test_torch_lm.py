@@ -1,12 +1,16 @@
 """The port's decoder LM (``repro_torch/models/transformer.py``, the configs,
 the param specs and the converter) against the JAX package on the SMOKE
-configs of the five ported archs, with JAX's init converted through numpy.
+configs of the seven ported archs (dense, VLM and MoE with or without
+MLA), with JAX's init converted through numpy.
 
 Tolerances: fp32 logits rtol 2e-3, atol 2e-4, JAX's own for decode
-against forward (``tests/test_archs.py``); bf16 logits within 2% of the
-logits' RMS in RMS error (per-op rounding differs from XLA's fused bf16
-chains: a few bf16 ulps a layer). Ports of ``tests/test_archs.py`` and
-``tests/test_model_invariants.py`` keep their tolerances.
+against forward (``tests/test_archs.py``); MoE metrics within 1e-6; bf16
+logits within 2% of the logits' RMS in RMS error (per-op rounding differs
+from XLA's fused bf16 chains: a few bf16 ulps a layer), after checking
+that every MoE layer selected the same experts on both sides (a routing
+flip at a near-tie changes an expert, not a rounding). Ports of
+``tests/test_archs.py`` and ``tests/test_model_invariants.py`` keep their
+tolerances.
 """
 
 import dataclasses
@@ -20,16 +24,21 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
 from repro.models.module import init_params as jax_init_params  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.api import get_api  # noqa: E402
 from repro_torch.models import convert, module  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 
-PORTED = ["olmo-1b", "qwen1.5-4b", "qwen3-32b", "granite-34b", "qwen2-vl-72b"]
-UNPORTED = {"qwen3-moe-235b-a22b": "7a", "deepseek-v2-lite-16b": "7b",
-            "mamba2-370m": "7c", "recurrentgemma-9b": "7d", "whisper-tiny": "7e"}
+MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
+PORTED = ["olmo-1b", "qwen1.5-4b", "qwen3-32b", "granite-34b", "qwen2-vl-72b",
+          *MOE]
+UNPORTED = {"mamba2-370m": "7c", "recurrentgemma-9b": "7d", "whisper-tiny": "7e"}
+# Leaves the compute tree holds in fp32 (transformer._FP32_KEYS).
+FP32_LEAVES = ("q_norm", "k_norm", "kv_norm", "router")
 RTOL, ATOL = 2e-3, 2e-4
 B, S = 2, 12
 
@@ -83,28 +92,55 @@ def test_forward_matches_jax(arch):
     jcfg, cfg, jp, p = _setup(arch)
     toks = _tokens(cfg, 0)
     jpos, tpos = _positions(cfg)
-    want, _ = jtr.forward(jp, jnp.asarray(toks), jcfg, positions=jpos)
+    want, jmetrics = jtr.forward(jp, jnp.asarray(toks), jcfg, positions=jpos)
     got, metrics = tr.forward(p, torch.from_numpy(toks), cfg, positions=tpos)
     assert got.shape == (B, S, cfg.vocab_size)
     np.testing.assert_allclose(_f32(got), np.asarray(want), rtol=RTOL, atol=ATOL)
-    assert metrics == {"moe_aux": 0.0, "moe_drop_frac": 0.0}
+    assert metrics.keys() == jmetrics.keys() == {"moe_aux", "moe_drop_frac"}
+    for name, value in metrics.items():
+        assert value.shape == () and value.dtype == torch.float32
+        assert abs(float(value) - float(jmetrics[name])) <= 1e-6, name
+    assert (float(metrics["moe_aux"]) > 0) == (arch in MOE)
+
+
+def _recorded_routes(monkeypatch, mod, run):
+    """``run()`` with ``mod._router`` recording each MoE layer's selected
+    experts (numpy, in call order)."""
+    routes, real = [], mod._router
+
+    def record(*args):
+        out = real(*args)
+        routes.append(np.asarray(out[1]))
+        return out
+
+    monkeypatch.setattr(mod, "_router", record)
+    result = run()
+    monkeypatch.setattr(mod, "_router", real)
+    return result, routes
 
 
 @pytest.mark.parametrize("arch", PORTED)
-def test_bf16_forward_and_compute_params_match_jax(arch):
-    jcfg, cfg, jp, p = _setup(arch, dtype="bfloat16")
+def test_bf16_forward_and_compute_params_match_jax(arch, monkeypatch):
+    # JAX unrolled (scan_layers=False: the same operations) so that its
+    # routing is recorded as arrays, not traced
+    jcfg, cfg, jp, p = _setup(arch, dtype="bfloat16", scan_layers=False)
     toks = _tokens(cfg, 1)
     jpos, tpos = _positions(cfg)
-    want = np.asarray(jtr.forward(jp, jnp.asarray(toks), jcfg,
-                                  positions=jpos)[0], np.float32)
-    got, _ = tr.forward(p, torch.from_numpy(toks), cfg, positions=tpos)
+    (want, _), jroutes = _recorded_routes(monkeypatch, jmoe, lambda: jtr.forward(
+        jp, jnp.asarray(toks), jcfg, positions=jpos))
+    want = np.asarray(want, np.float32)
+    (got, _), routes = _recorded_routes(monkeypatch, moe, lambda: tr.forward(
+        p, torch.from_numpy(toks), cfg, positions=tpos))
+    assert len(routes) == len(jroutes) == (cfg.num_layers if cfg.moe else 0)
+    for layer, (r, jr) in enumerate(zip(routes, jroutes)):
+        np.testing.assert_array_equal(r, jr, err_msg=f"layer {layer} routing")
     rms = float(np.sqrt(np.mean(want ** 2)))
     assert float(np.sqrt(np.mean((_f32(got) - want) ** 2))) < 0.02 * rms
     # a compute-dtype copy gives the per-use casts' values bit for bit
     cp = tr.compute_params(p, cfg)
     for path, t in module.leaves(cp).items():
         fp32 = (path[0] == "final_norm" or path[1] in ("ln1", "ln2")
-                or path[-1] in ("q_norm", "k_norm"))
+                or path[-1] in FP32_LEAVES)
         assert t.dtype == (torch.float32 if fp32 else torch.bfloat16), path
     again, _ = tr.forward(cp, torch.from_numpy(toks), cfg, positions=tpos)
     assert torch.equal(again, got)
@@ -127,7 +163,8 @@ def test_decode_sequence_matches_jax_and_own_forward(arch):
         np.testing.assert_allclose(_f32(got), np.asarray(want), rtol=RTOL,
                                    atol=ATOL)
         outs.append(got[:, 0])
-    for name in ("k", "v"):
+    assert tc.keys() == jc.keys()
+    for name in tc:
         np.testing.assert_allclose(_f32(tc[name]), np.asarray(jc[name]),
                                    rtol=RTOL, atol=ATOL)
     full, _ = tr.forward(p, torch.from_numpy(toks), cfg)
@@ -146,7 +183,8 @@ def test_prefill_then_decode_matches_forward(arch):
     np.testing.assert_allclose(_f32(logits_p), _f32(full[:, :-1]), rtol=RTOL,
                                atol=ATOL)
     _, jcache = jtr.prefill(jp, jnp.asarray(toks[:, :-1]), jcfg, max_len=S)
-    for name in ("k", "v"):
+    assert cache.keys() == jcache.keys()
+    for name in cache:
         assert cache[name].shape == jcache[name].shape
         np.testing.assert_allclose(_f32(cache[name]), np.asarray(jcache[name]),
                                    rtol=RTOL, atol=ATOL)
@@ -157,7 +195,16 @@ def test_prefill_then_decode_matches_forward(arch):
 
 def test_vector_positions_decode_matches_jax():
     """A mixed-length slot batch: rows at different positions in one call."""
-    jcfg, cfg, jp, p = _setup("qwen2-vl-72b")
+    _vector_positions_decode("qwen2-vl-72b")
+
+
+def test_vector_positions_decode_matches_jax_mla():
+    """The same through MLA's latent cache."""
+    _vector_positions_decode("deepseek-v2-lite-16b")
+
+
+def _vector_positions_decode(arch):
+    jcfg, cfg, jp, p = _setup(arch)
     toks = _tokens(cfg, 4)
     jc = jtr.init_cache(jcfg, B, S)
     tc = tr.init_cache(cfg, B, S, device="cpu")
@@ -169,6 +216,9 @@ def test_vector_positions_decode_matches_jax():
                                  cfg)
         np.testing.assert_allclose(_f32(got), np.asarray(want), rtol=RTOL,
                                    atol=ATOL)
+    for name in tc:
+        np.testing.assert_allclose(_f32(tc[name]), np.asarray(jc[name]),
+                                   rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("attention,kw", [("knn", dict(knn_neighbors=4)),
@@ -219,7 +269,7 @@ def test_determinism():
     assert torch.equal(l1, l2)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-32b", "granite-34b"])
+@pytest.mark.parametrize("arch", ["qwen3-32b", "granite-34b", *MOE])
 def test_batch_independence(arch):
     """Port of ``tests/test_model_invariants.py::test_batch_independence``."""
     _, cfg, _, p = _setup(arch)
@@ -272,7 +322,7 @@ def test_init_params_kinds_scales_and_stacking():
         module.init_leaf(module.spec((2,), init="uniform"), torch.Generator())
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-vl-72b", *MOE])
 def test_converter_round_trip_and_shape_checks(arch):
     jcfg, cfg, jp, p = _setup(arch)
     tree = jax.tree.map(np.asarray, jp)
@@ -283,11 +333,51 @@ def test_converter_round_trip_and_shape_checks(arch):
         keys = tuple(k.key for k in path)
         np.testing.assert_array_equal(module.leaves(back)[keys], a)
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    assert p["layers"]["mix"]["wq"].dtype == torch.float32
     bad = jax.tree.map(np.asarray, jp)
-    del bad["layers"]["mlp"]["wo"]
-    with pytest.raises(ValueError, match="missing.*layers/mlp/wo"):
+    del bad["layers"]["mix"]["wq"]
+    with pytest.raises(ValueError, match="missing.*layers/mix/wq"):
         convert.lm_params_from_numpy(cfg, bad, device="cpu")
     bad = jax.tree.map(np.asarray, jp)
     bad["embed"]["tokens"] = bad["embed"]["tokens"].T
     with pytest.raises(ValueError, match="embed/tokens: shape"):
         convert.lm_params_from_numpy(cfg, bad, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "deepseek-v2-lite-16b"])
+def test_init_params_in_compute_dtypes(arch, monkeypatch):
+    """``init_params(dtype_of=)`` draws each leaf straight into the compute
+    tree's dtype, a slice of its leading axis at a time when narrower than
+    its fp32 draw: the compute tree's dtypes and the spec's shapes, the
+    init's scales, and ``compute_params`` of it copies no leaf. Without
+    ``dtype_of`` the draw is the fp32 one, unchanged."""
+    cfg = configs.get_smoke(arch)
+    spec = tr.param_spec(cfg)
+    monkeypatch.setattr(module, "_DRAW_ELEMS", 64 * 64)  # many slices a leaf
+
+    def draw(**kw):
+        return module.init_params(spec, generator=torch.Generator().manual_seed(3),
+                                  device="cpu", **kw)
+
+    p = draw(dtype_of=lambda path: tr.compute_dtype(path, cfg))
+    specs = module.leaves(spec)
+    for path, t in module.leaves(p).items():
+        fp32 = (path[0] == "final_norm" or path[1] in ("ln1", "ln2")
+                or path[-1] in FP32_LEAVES)
+        assert t.dtype == (torch.float32 if fp32 else torch.bfloat16), path
+        assert tuple(t.shape) == specs[path].shape, path
+    assert torch.equal(p["final_norm"]["scale"], torch.ones(cfg.d_model))
+    assert abs(float(p["embed"]["tokens"].float().std()) - 0.02) < 0.002
+    w = p["layers"]["mlp"]["w_up" if cfg.moe else "wi_up"].float()
+    assert abs(float(w.std()) - cfg.num_layers ** -0.5) < 0.02
+    assert not torch.equal(w[0], w[1])  # each slice its own draw
+    cp = tr.compute_params(p, cfg)
+    assert all(cp_t is t for cp_t, t in zip(module.leaves(cp).values(),
+                                            module.leaves(p).values()))
+    gen, fp32 = torch.Generator().manual_seed(3), module.leaves(draw())
+    for path in sorted(specs):  # each leaf whole, in fp32, in path order
+        s = specs[path]
+        assert fp32[path].dtype == torch.float32
+        if s.init not in ("zeros", "ones"):
+            want = torch.randn(s.shape, generator=gen) * module._leaf_sd(s)
+            assert torch.equal(fp32[path], want), path

@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
-from repro_torch.models import module, transformer  # noqa: E402
+from repro_torch.models import mla, module, moe, transformer  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -33,8 +33,11 @@ def cuda():
 
 @pytest.mark.parametrize("arch,kw", [("olmo-1b", {}), ("qwen2-vl-72b", {}),
                                      ("olmo-1b", dict(attention="knn",
-                                                      knn_neighbors=3))],
-                         ids=["olmo", "qwen2-vl", "olmo-knn"])
+                                                      knn_neighbors=3)),
+                                     ("deepseek-v2-lite-16b", {}),
+                                     ("qwen3-moe-235b-a22b", {})],
+                         ids=["olmo", "qwen2-vl", "olmo-knn", "deepseek",
+                              "qwen3-moe"])
 def test_engine_on_card_equals_cpu(cuda, arch, kw):
     """The LM ServeEngine at SMOKE widths in fp32: the card's tokens and
     decode calls equal the CPU's on mixed prompts, more requests than
@@ -53,3 +56,67 @@ def test_engine_on_card_equals_cpu(cuda, arch, kw):
         runs[str(dev)] = ({r.uid: r.out_tokens for r in eng.run()},
                           eng.decode_calls)
     assert runs["cuda"] == runs["cpu"]
+
+
+def _on(tree, dev):
+    return module.map_tree(lambda _, t: t.to(dev), tree)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"])
+def test_moe_layer_on_card_equals_cpu(cuda, arch):
+    """fp32, TF32 off: the same expert selection and outputs within 1e-5
+    (sums in other orders)."""
+    cfg = get_smoke(arch).replace(dtype="float32")
+    p = module.init_params(moe.moe_spec(cfg), device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 5, cfg.d_model)).astype(np.float32))
+    want, wm = moe.moe_apply(p, x, cfg)
+    got, gm = moe.moe_apply(_on(p, cuda), x.to(cuda), cfg)
+    _, sel, _, _ = moe._router(p, x.reshape(-1, cfg.d_model), cfg.moe)
+    _, dsel, _, _ = moe._router(_on(p, cuda), x.to(cuda).reshape(-1, cfg.d_model),
+                                cfg.moe)
+    assert torch.equal(dsel.cpu(), sel)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert abs(float(gm["moe_aux"]) - float(wm["moe_aux"])) <= 1e-6
+
+
+def test_mla_layer_on_card_equals_cpu(cuda):
+    """fp32 prefill and the absorbed decode at (B,) positions with a
+    member-row commit: outputs and latents within 1e-5."""
+    cfg = get_smoke("deepseek-v2-lite-16b").replace(dtype="float32")
+    p = module.init_params(mla.mla_spec(cfg), device="cpu",
+                           generator=torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 9, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(9).expand(2, 9)
+    runs = {}
+    for dev in ("cpu", cuda):
+        pd = _on(p, dev)
+        out, (c, k) = mla.mla_apply(pd, x.to(dev), cfg, positions=pos.to(dev))
+        cache = {"c_kv": torch.nn.functional.pad(c, (0, 0, 0, 3)),
+                 "k_pe": torch.nn.functional.pad(k, (0, 0, 0, 3))}
+        pv = torch.tensor([9, 4], device=dev)
+        dec, _ = mla.mla_apply(pd, x[:, :1].to(dev), cfg, positions=pv[:, None],
+                               cache=cache, pos=pv,
+                               rows=torch.tensor([0], device=dev))
+        runs[str(dev)] = [t.cpu() for t in (out, c, k, dec[:1], *cache.values())]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_init_in_compute_dtype_on_card(cuda):
+    """A CUDA generator draws the serving tree straight into bf16 with the
+    fp32 leaves (norms, router, latent norm) kept, and the engine holds it
+    without a copy."""
+    cfg = get_smoke("deepseek-v2-lite-16b")
+    p = module.init_params(transformer.param_spec(cfg), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0),
+                           dtype_of=lambda path: transformer.compute_dtype(path, cfg))
+    for path, t in module.leaves(p).items():
+        fp32 = (path[0] == "final_norm" or path[1] in ("ln1", "ln2")
+                or path[-1] in ("kv_norm", "router"))
+        assert t.is_cuda and t.dtype == (torch.float32 if fp32 else torch.bfloat16), path
+    eng = ServeEngine(cfg, p, slots=2, max_len=8, device=cuda)
+    assert all(a is b for a, b in zip(module.leaves(eng.params).values(),
+                                      module.leaves(p).values()))

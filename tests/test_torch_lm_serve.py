@@ -20,7 +20,7 @@ from repro.models.module import init_params as jax_init_params  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import convert, module  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
@@ -51,7 +51,10 @@ def _serve(eng, make, prompts, budgets):
     ("qwen2-vl-72b", {}),
     ("olmo-1b", dict(attention="knn", knn_neighbors=3)),
     ("olmo-1b", dict(attention="local", window=4)),
-], ids=["olmo", "qwen3", "qwen2-vl", "olmo-knn", "olmo-local"])
+    ("deepseek-v2-lite-16b", {}),
+    ("qwen3-moe-235b-a22b", {}),
+], ids=["olmo", "qwen3", "qwen2-vl", "olmo-knn", "olmo-local", "deepseek",
+        "qwen3-moe"])
 def test_engine_matches_jax_engine(arch, kw):
     """More requests than slots, mixed prompt lengths and budgets: slots
     prefill while others decode at overlapping positions."""
@@ -106,7 +109,16 @@ def test_mixed_length_slots_match_solo():
 def test_prefill_leaves_other_slots_cache_bit_for_bit():
     """A slot prefilling while another is mid-decode at overlapping
     positions, and a third idle, writes only its own rows."""
-    _, cfg, _, p = _setup()
+    _prefill_leaves_other_slots("olmo-1b")
+
+
+def test_prefill_leaves_other_slots_latents_bit_for_bit():
+    """The same for MLA's latent cache (``c_kv``, ``k_pe``)."""
+    _prefill_leaves_other_slots("deepseek-v2-lite-16b")
+
+
+def _prefill_leaves_other_slots(arch):
+    _, cfg, _, p = _setup(arch)
     eng = ServeEngine(cfg, p, slots=3, max_len=16, device="cpu")
     eng.submit(Request(uid=0, prompt=np.asarray([5, 9, 2, 7], np.int32),
                        max_new_tokens=8))
@@ -178,4 +190,35 @@ def test_launch_serve_main_smoke_on_cpu(capsys):
     assert "served 8 requests / 128 tokens" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 7e"):
         serve.main(["--arch", "whisper-tiny", "--smoke", "--device", "cpu"])
+
+
+def test_launch_serve_main_deepseek_smoke_on_cpu(capsys, monkeypatch):
+    """The MoE + MLA arch through ``launch.serve``: its tree drawn in the
+    compute dtypes, held by the engine as drawn (no copy), the latent
+    cache."""
+    engines = []
+
+    class Kept(ServeEngine):
+        def __init__(self, cfg, params, **kw):
+            super().__init__(cfg, params, **kw)
+            engines.append((self, params))
+
+    monkeypatch.setattr(serve, "ServeEngine", Kept)
+    finished = serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke",
+                           "--device", "cpu", "--requests", "3"])
+    cfg = configs.get_smoke("deepseek-v2-lite-16b")
+    assert sorted(r.uid for r in finished) == [0, 1, 2]
+    assert all(len(r.out_tokens) == 16 and all(0 <= t < cfg.vocab_size
+                                               for t in r.out_tokens)
+               for r in finished)
+    assert "served 3 requests / 48 tokens" in capsys.readouterr().out
+    eng, drawn = engines[0]
+    for path, t in module.leaves(eng.params).items():
+        assert t is module.leaves(drawn)[path], path
+        assert t.dtype == tr.compute_dtype(path, cfg), path
+    assert eng.params["layers"]["mlp"]["router"].dtype == torch.float32
+    assert eng.params["layers"]["mix"]["kv_norm"].dtype == torch.float32
+    assert eng.params["layers"]["mlp"]["w_gate"].dtype == torch.bfloat16
+    assert set(eng.cache) == {"c_kv", "k_pe"}
+    assert eng.cache["c_kv"].shape == (cfg.num_layers, 4, 40, cfg.mla.kv_lora)
 
