@@ -172,13 +172,31 @@ Phases, each printed as it runs; any failure exits non-zero:
     at 4 layers (rtol 2e-3, atol 2e-4) and the card against the CPU at 2
     layers (tokens equal, logits within ``LM_TOL_RMS``); last,
     ``qwen3-moe-235b-a22b`` at full width and 2 layers (128 experts top-8,
-    GQA with qk-norm): a short served run with finite logits, its step.
+    GQA with qk-norm): a short served run with finite logits, its step;
+24. the recurrent families (plain PyTorch, no kernel of their own: JAX's
+    SSD and RG-LRU are einsums, ``cumsum`` and scans): ``mamba2-370m`` (48
+    SSD layers, d_model 1024, d_state 128, vocab 50280) and then, its
+    engine freed, ``recurrentgemma-9b`` (38 layers = 12 (rec, rec, attn)
+    groups + 2 ``rem`` RG-LRU layers, d_model 4096, local window 2048,
+    vocab 256000), each at full width in bf16 through
+    ``launch.serve.main``'s defaults: every token in range, every logit
+    finite, no kernel launched; tokens/s, the peak memory; the decode step
+    at 4 slots by CUDA events and profiled against its bound (the weights
+    read once, each slot's recurrent state read and written, the
+    attention cache read once); a ``slots=1`` engine bit for bit the direct
+    greedy loop (tokens and every cache leaf: ``h``, ``conv``, the
+    hybrid's ``k`` / ``v``); fp32 the decode loop against ``forward`` (4
+    layers of the SSM, with ``prefill`` + one decode too; 2 ``rem``
+    layers of the hybrid, whose prefill cache cannot be decoded, as
+    JAX's) and the card against the CPU at 2 layers (tokens equal, logits
+    within ``RECURRENT_TOL_RMS``); last the hybrid's 4-layer fp32 drift
+    (one group: the decode loop against ``forward``, measured, finite).
 
 Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
 tier, which must launch none; so do phase 21's cluster engines and the LM
-phases 22 and 23). A
+phases 22, 23 and 24). A
 replayed graph adds the launches its capture recorded. Every engine
 outside phases 17 and 21 (c) must end with
 ``fallback_level`` 0 and no logged fault. The line before the last is the kernel summary
@@ -2834,12 +2852,14 @@ def engine_equals_greedy(cfg, params) -> None:
     one.submit(Request(0, prompt[0], max_new_tokens=8))
     got = one.run()[0].out_tokens
     toks, _, cache = greedy(params, cfg, prompt, 8, DEV)
-    if got != toks[0].tolist() or not all(torch.equal(one.cache[k], cache[k])
-                                          for k in cache):
+    mine, theirs = module.leaves(one.cache), module.leaves(cache)
+    if got != toks[0].tolist() or mine.keys() != theirs.keys() or not all(
+            torch.equal(mine[k], theirs[k]) for k in theirs):
         raise AssertionError(f"slots=1 engine {got} against direct greedy "
                              f"{toks[0].tolist()} (or their caches differ)")
     print(f"slots=1 engine = direct decode_step greedy loop bit for bit "
-          f"(tokens {got}, caches {sorted(cache)} equal)")
+          f"(tokens {got}, {len(theirs)} cache leaves equal: "
+          f"{sorted({k[-1] for k in theirs})})")
 
 
 def fp32_prefill_decode(cfg32) -> None:
@@ -2861,10 +2881,10 @@ def fp32_prefill_decode(cfg32) -> None:
               f"forward: max |diff| {err:.3g} (rtol 2e-3, atol 2e-4)")
 
 
-def card_equals_cpu(cfg2) -> None:
+def card_equals_cpu(cfg2, tol: float = LM_TOL_RMS) -> None:
     """At a few layers, full width, fp32: the card's greedy decode equals
-    the CPU's (tokens equal, logits within LM_TOL_RMS of their RMS).
-    Drawn on the card, copied to the host."""
+    the CPU's (tokens equal, logits within ``tol`` of their RMS). Drawn on
+    the card, copied to the host."""
     p_dev = module.init_params(tr.param_spec(cfg2), device=DEV,
                                generator=torch.Generator(device=DEV).manual_seed(2))
     p_cpu = module.map_tree(lambda _, t: t.cpu(), p_dev)
@@ -2875,17 +2895,18 @@ def card_equals_cpu(cfg2) -> None:
         x = p_cpu["embed"]["tokens"][torch.from_numpy(prompt).long()]
         pos = torch.arange(prompt.shape[1]).expand(prompt.shape)
         for i in range(cfg2.num_layers):
-            x, _, _ = tr._block(tr._layer(p_cpu, i), x, cfg2, positions=pos)
+            kind, lp = tr._layer(p_cpu, i, cfg2)
+            x, _, _ = tr._block(lp, x, cfg2, kind, positions=pos)
     err = float((l_dev - l_cpu).abs().max())
     rms = float(l_cpu.pow(2).mean().sqrt())
-    if not torch.equal(t_dev, t_cpu) or err > LM_TOL_RMS * rms:
+    if not torch.equal(t_dev, t_cpu) or err > tol * rms:
         raise AssertionError(f"{cfg2.num_layers} layers, fp32: card tokens "
                              f"{t_dev.tolist()}, CPU {t_cpu.tolist()}; max "
                              f"|logit diff| {err}, logit RMS {rms}")
     print(f"{cfg2.num_layers} layers, full width, fp32: card = CPU, tokens equal "
           f"({t_dev.shape[1]} new per row), max |logit diff| over "
           f"{l_dev.shape[1]} steps {err:.3g} = {err / rms:.3g} of the logits' "
-          f"RMS {rms:.3g} (tolerance {LM_TOL_RMS}); the prompt's residual "
+          f"RMS {rms:.3g} (tolerance {tol}); the prompt's residual "
           f"stream before the final norm has RMS {float(x.pow(2).mean().sqrt()):.4g}")
 
 
@@ -3080,6 +3101,136 @@ def qwen3_moe_two_layers() -> None:
           f"{bound_ms:.3f} ms ({by}, every expert read)")
 
 
+# Phase 24: the recurrent families, SSM and the Griffin hybrid, at full
+# width through `launch.serve.main`; their fp32 checks at reduced depth
+# after the bf16 engine is freed. At 4 layers the hybrid is one (rec, rec,
+# attn) group and one ``rem`` layer; the stacked init takes the group
+# count, 1, as the fan-in, so the group's weights have sd 1 and any two
+# fp32 orders of its sums drift apart past JAX's tolerance from width
+# 1024 up, in JAX as in the port (``tools/hybrid_fp32_gap.py``). So the
+# hybrid's fp32 checks are held at 2 layers (two ``rem`` layers, fan-in
+# d_model), and its 4-layer drift is measured and printed.
+RECURRENT_ARCHS = {"mamba2-370m": dict(fp32_layers=4, cpu_layers=2),
+                   "recurrentgemma-9b": dict(fp32_layers=2, cpu_layers=2,
+                                             drift_layers=4)}
+RECURRENT_TOL_RMS = 1e-3
+
+
+def step_bound(cfg, params, cache, slots: int) -> tuple[float, str, str]:
+    """The decode step's least time at ``slots`` rows: the weights read
+    once, each slot's recurrent state read and written, the attention
+    cache read once; 2 operations a weight and row, plus the state update
+    and the attention over the cache. (ms, "bytes" or "operations", what
+    was counted)."""
+    leaves = module.leaves(cache)
+    state = sum(t.numel() * t.element_size() for path, t in leaves.items()
+                if path[-1] in ("h", "conv"))
+    kv = sum(t.numel() * t.element_size() for path, t in leaves.items()
+             if path[-1] in ("k", "v"))
+    flops = 2.0 * slots * sum(t.numel() for t in module.leaves(params).values())
+    flops += 4.0 * sum(t.numel() for path, t in leaves.items() if path[-1] == "h")
+    for path, k in leaves.items():  # q.k and w.v over the cache, every head
+        if path[-1] == "k":  # (layers, B, T, KVH, dh)
+            flops += 4.0 * slots * k.shape[0] * cfg.num_heads * cfg.dh * k.shape[2]
+    nbytes = tensor_bytes(params) + 2 * state + kv
+    ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    return ms, by, (f"{tensor_bytes(params) / 1e9:.3f} GB of weights + "
+                    f"{state / 1e6:.1f} MB of recurrent state read and written"
+                    + (f" + {kv / 1e6:.1f} MB of attention cache" if kv else ""))
+
+
+def decode_and_forward(cfg32) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 on the card, seeded weights: the logits of a ``decode_step``
+    loop over 16 tokens and of ``forward`` on them, (2, 16, V) each."""
+    p32 = module.init_params(tr.param_spec(cfg32), device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(1))
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg32.vocab_size, (2, 16)).astype(np.int32)).to(DEV)
+    with torch.inference_mode():
+        full, _ = tr.forward(p32, tokens, cfg32)
+        cache, outs = tr.init_cache(cfg32, 2, 16, device=DEV), []
+        for t in range(16):
+            lg, cache = tr.decode_step(p32, cache, tokens[:, t:t + 1], t, cfg32)
+            outs.append(lg[:, 0])
+    return torch.stack(outs, 1), full
+
+
+def fp32_decode_loop(cfg32) -> None:
+    """The decode loop against ``forward`` at JAX's tolerance (rtol 2e-3,
+    atol 2e-4)."""
+    dec, full = decode_and_forward(cfg32)
+    err = float((dec - full).abs().max())
+    if not bool(torch.isfinite(full).all()) or not torch.allclose(
+            dec, full, rtol=2e-3, atol=2e-4):
+        raise AssertionError(f"fp32 decode loop against forward: max |diff| "
+                             f"{err}, finite {bool(torch.isfinite(full).all())}")
+    print(f"fp32 full width, {cfg32.num_layers} layers, the decode loop (16 "
+          f"steps) against forward: max |diff| {err:.3g} (rtol 2e-3, atol 2e-4)")
+
+
+def fp32_drift(cfg32) -> None:
+    """Measured, held only to finite logits: the decode loop against
+    ``forward`` where the reference's init leaves fp32 ill-conditioned
+    (one hybrid group); the max |diff| beside the logits' RMS and the
+    share of positions whose argmax agrees."""
+    dec, full = decode_and_forward(cfg32)
+    if not (bool(torch.isfinite(dec).all()) and bool(torch.isfinite(full).all())):
+        raise AssertionError("fp32 decode loop or forward logits not finite")
+    err, rms = float((dec - full).abs().max()), float(full.pow(2).mean().sqrt())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    print(f"fp32 full width, {cfg32.num_layers} layers (one group, sd-1 group "
+          f"weights), measured: the decode loop against forward max |diff| "
+          f"{err:.3g} = {err / rms:.3g} of the logits' RMS {rms:.3g}, argmax "
+          f"equal at {100 * agree:.1f}% of positions; logits finite")
+
+
+def recurrent_model(arch: str) -> None:
+    """One recurrent arch at full width: served through
+    ``launch.serve.main``, its peak memory, its step against the bound,
+    the ``slots=1`` engine against the loop; then (the engine freed) the
+    fp32 and card-against-CPU checks at reduced depth."""
+    cfg = lm_configs.get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng = served_through_main(arch)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{arch}: peak device memory allocated (init, engine, serving) "
+          f"{(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
+          f"before it")
+    step_ms, prof, pos, _ = timed_decode_step(eng)
+    bound_ms, by, what = step_bound(cfg, eng.params, eng.cache, 4)
+    print(f"{step_line(step_ms, prof, pos)}; bound {bound_ms:.3f} ms ({by}: "
+          f"{what}), {100 * bound_ms / step_ms:.1f}% of the step, "
+          f"{100 * bound_ms / prof['busy_ms']:.1f}% of the busy time")
+    engine_equals_greedy(cfg, eng.params)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizes = RECURRENT_ARCHS[arch]
+    cfg32 = cfg.replace(dtype="float32", num_layers=sizes["fp32_layers"])
+    fp32_decode_loop(cfg32)
+    if cfg.family == "ssm":  # the hybrid's prefill cache is not decode-ready
+        fp32_prefill_decode(cfg32)
+    torch.cuda.empty_cache()
+    card_equals_cpu(cfg.replace(dtype="float32", num_layers=sizes["cpu_layers"]),
+                    tol=RECURRENT_TOL_RMS)
+    torch.cuda.empty_cache()
+    if "drift_layers" in sizes:
+        fp32_drift(cfg.replace(dtype="float32", num_layers=sizes["drift_layers"]))
+        torch.cuda.empty_cache()
+
+
+def recurrent_serving() -> None:
+    t_phase = time.perf_counter()
+    phase("24. recurrent LMs on the card: mamba2-370m and recurrentgemma-9b "
+          "at full width")
+    for arch in RECURRENT_ARCHS:
+        recurrent_model(arch)
+    print(f"phase 24 wall time: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -3106,6 +3257,7 @@ def main() -> None:
     approx_serving()
     lm_serving()
     moe_serving()
+    recurrent_serving()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

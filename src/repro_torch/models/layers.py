@@ -260,14 +260,31 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).long().reshape(-1).expand(b)
 
 
-def _write_rows(cache: dict, new: dict, slot: torch.Tensor, rows) -> None:
+def _write_rows(cache: dict, new: dict, slot: torch.Tensor, rows,
+                vector: bool) -> None:
     """Write row r's new entries (``new[name]`` (B, 1, ...), e.g. the key
     and value) at cache slot ``slot[r]`` of ``cache[name]`` in place, for
-    the rows ``rows`` names (all when None)."""
+    the rows ``rows`` names (all when None), bounded as JAX bounds it with
+    no host read: a (B,) ``pos`` vector (``vector``) writes nothing for a
+    row whose slot is outside [0, T) (JAX's ``hit`` mask is all false); a
+    scalar ``pos`` clamps the write into [0, T - 1], as
+    ``dynamic_update_slice`` does."""
     if rows is None:
         rows = torch.arange(slot.shape[0], device=slot.device)
-    for name, t in new.items():
-        cache[name][rows, slot[rows]] = t[rows, 0].to(cache[name].dtype)
+    t = next(iter(cache.values())).shape[1]
+    at = slot[rows]
+    idx = at.clamp(0, t - 1)
+    for name, val in new.items():
+        val = val[rows, 0].to(cache[name].dtype)
+        if vector:
+            keep = ((at >= 0) & (at < t)).reshape((-1,) + (1,) * (val.ndim - 1))
+            val = torch.where(keep, val, cache[name][rows, idx])
+        cache[name][rows, idx] = val
+
+
+def _is_vector(pos) -> bool:
+    """A (B,) per-slot ``pos`` vector, as against a scalar."""
+    return torch.as_tensor(pos).ndim == 1
 
 
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
@@ -297,7 +314,7 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     t = cache["k"].shape[1]
     pv = _pos_vector(pos, b, q.device)
     sv = pv % t if window > 0 else pv  # rolling buffer for local attention
-    _write_rows(cache, {"k": k_new, "v": v_new}, sv, rows)
+    _write_rows(cache, {"k": k_new, "v": v_new}, sv, rows, _is_vector(pos))
     qg = q.reshape(b, 1, kvh, g, cfg.dh)
     logits = torch.einsum(
         "bqkgd,btkd->bkgqt", qg, cache["k"].to(dt)
@@ -333,7 +350,7 @@ def knn_attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                                 causal=True)
         return _out_proj(out, params["wo"], dt), (k, v)
     pv = _pos_vector(pos, q.shape[0], q.device)
-    _write_rows(cache, {"k": k, "v": v}, pv, rows)
+    _write_rows(cache, {"k": k, "v": v}, pv, rows, _is_vector(pos))
     kk = _repeat_kv(cache["k"].to(dt), cfg.num_heads)
     vv = _repeat_kv(cache["v"].to(dt), cfg.num_heads)
     out = knn_attention_decode_rows(q[:, 0], kk, vv, pv + 1,

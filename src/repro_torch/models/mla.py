@@ -21,6 +21,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     NEG_INF,
+    _is_vector,
     _out_proj,
     _pos_vector,
     _proj_heads,
@@ -90,7 +91,8 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     b = x.shape[0]
     t = cache["c_kv"].shape[1]
     pv = _pos_vector(pos, b, x.device)
-    _write_rows(cache, {"c_kv": c_kv, "k_pe": k_pe}, pv, rows)
+    _write_rows(cache, {"c_kv": c_kv, "k_pe": k_pe}, pv, rows,
+                _is_vector(pos))
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     c_cache = cache["c_kv"].to(dt)
     # absorb W_uk into the query: q_lat = q_nope @ W_uk^T per head

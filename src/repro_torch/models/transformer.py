@@ -1,33 +1,42 @@
 """Decoder-only LM assembly (port of ``repro/models/transformer.py``) for the
 families ``dense`` (olmo, qwen1.5, qwen3, granite), ``vlm`` (qwen2-vl's
-M-RoPE backbone) and ``moe`` (qwen3-moe: routed MoE with GQA; deepseek-v2:
-MLA and MoE with shared experts), with full, local and KNN attention.
+M-RoPE backbone), ``moe`` (qwen3-moe: routed MoE with GQA; deepseek-v2:
+MLA and MoE with shared experts), ``ssm`` (mamba2: SSD blocks with no
+channel mixer) and ``hybrid`` (recurrentgemma: RG-LRU and local attention
+in (rec, rec, attn) groups), with full, local and KNN attention.
 
 Parameters keep JAX's stacked layout: every per-layer leaf carries a
-leading ``layers`` dimension, so converting a JAX tree is one-to-one; a
-Python loop walks it where JAX scans. SSM, the Griffin hybrid and the
-encoder-decoder raise ``NotImplementedError`` naming the ROADMAP item
-that ports them; nothing runs them as dense.
+leading ``layers`` dimension (the hybrid: ``groups``, stacked over the
+groups with keys ``l{i}_{kind}``, then the unstacked remainder ``rem``
+of ``l{i}_rec`` layers), so converting a JAX tree is one-to-one; a Python
+loop walks it where JAX scans. The encoder-decoder raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 
-Decode cache, in the compute dtype with a leading ``layers`` dim:
-``{"k", "v"}`` of (layers, B, T, KVH, dh) (T = ``min(window, max_len)``
-for local attention's rolling buffer), or MLA's latent
-``{"c_kv": (layers, B, T, kv_lora), "k_pe": (layers, B, T, rope)}``.
-``decode_step`` is functional by default (the cache passed in is left as
-it was); ``rows=`` writes the named rows' new entries into the given
-cache in place instead and leaves every other row bit for bit as it was,
-the serving engine's commit.
+Decode cache, with the parameters' leading dims: ``{"k", "v"}`` of
+(layers, B, T, KVH, dh) in the compute dtype (T = ``min(window,
+max_len)`` for local attention's rolling buffer), MLA's latent
+``{"c_kv": (layers, B, T, kv_lora), "k_pe": (layers, B, T, rope)}``, the
+SSM's fp32 state ``{"h": (layers, B, H, N, P), "conv": (layers, B, K-1,
+conv_dim)}``, or the hybrid's ``{"groups": {name: entry}, "rem": {name:
+entry}}`` (batch axis 1 in ``groups``, 0 in ``rem``; fp32 RG-LRU states
+``{"h", "conv"}``, attention ``{"k", "v"}``). ``decode_step`` is
+functional by default (the cache passed in is left as it was); ``rows=``
+commits the named rows into the given cache in place instead (an
+attention row's new entry at its slot, a recurrent row's state whole) and
+leaves every other row bit for bit as it was, the serving engine's
+commit.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.griffin import rglru_apply, rglru_init_state, rglru_spec
 from repro_torch.models.layers import (
     attention_apply,
     attention_spec,
@@ -43,19 +52,23 @@ from repro_torch.models.layers import (
 from repro_torch.models.mla import mla_apply, mla_spec
 from repro_torch.models.module import ParamSpec, map_tree
 from repro_torch.models.moe import moe_apply, moe_spec
+from repro_torch.models.ssm import ssm_apply, ssm_init_state, ssm_spec
 
 # ROADMAP queue 1 items that port the families this module refuses.
 _UNPORTED = (
-    (lambda c: c.family == "ssm", "the SSM family (models/ssm.py)", "7c"),
-    (lambda c: c.family == "hybrid", "the Griffin hybrid (models/griffin.py)", "7d"),
     (lambda c: c.family in ("audio", "encdec"),
      "the encoder-decoder (models/encdec.py)", "7e"),
 )
-# Leaves JAX uses in fp32 (norm scales and biases; the MoE router, which
-# multiplies fp32 tokens; MLA's latent norm): never cast.
+# Leaves JAX uses in fp32, never cast: norm scales and biases; the MoE
+# router, which multiplies fp32 tokens; MLA's latent norm; the SSM's
+# decay, step bias, skip and gated-norm scale (``norm``, a leaf only
+# there: the layer norms are ``ln1`` / ``ln2`` / ``final_norm``); the
+# RG-LRU's fp32 gates.
 _FP32_KEYS = {"ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm",
-              "router"}
-_FAMILIES = ("dense", "vlm", "moe")
+              "router", "a_log", "dt_bias", "d_skip", "norm",
+              "w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate",
+              "lam"}
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -81,21 +94,46 @@ def stack_specs(tree, n: int):
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
+    if cfg.family == "ssm":
+        return "ssm"
     return "attn_moe" if cfg.moe else "attn"
 
 
-def _layer_spec(cfg: ModelConfig):
+def _mixer_layer_spec(cfg: ModelConfig, kind: str):
     """One residual layer: temporal mixer + channel mixer."""
-    return {"ln1": norm_spec(cfg), "ln2": norm_spec(cfg),
-            "mix": mla_spec(cfg) if cfg.mla else attention_spec(cfg),
-            "mlp": moe_spec(cfg) if _layer_kind(cfg) == "attn_moe"
-            else mlp_spec(cfg)}
+    if kind == "ssm":
+        return {"ln1": norm_spec(cfg), "ssm": ssm_spec(cfg)}
+    if kind == "rec":
+        mix = rglru_spec(cfg)
+    else:
+        mix = mla_spec(cfg) if cfg.mla else attention_spec(cfg)
+    return {"ln1": norm_spec(cfg), "ln2": norm_spec(cfg), "mix": mix,
+            "mlp": moe_spec(cfg) if kind == "attn_moe" else mlp_spec(cfg)}
+
+
+def _hybrid_layout(cfg: ModelConfig):
+    """(pattern, groups, remainder layers) of a hybrid stack."""
+    pat = cfg.hybrid.pattern
+    n_groups = cfg.num_layers // len(pat)
+    return pat, n_groups, cfg.num_layers - n_groups * len(pat)
 
 
 def param_spec(cfg: ModelConfig):
     check_ported(cfg)
-    return {"embed": embed_spec(cfg), "final_norm": norm_spec(cfg),
-            "layers": stack_specs(_layer_spec(cfg), cfg.num_layers)}
+    p = {"embed": embed_spec(cfg), "final_norm": norm_spec(cfg)}
+    if cfg.family == "hybrid":
+        pat, n_groups, rem = _hybrid_layout(cfg)
+        group = {f"l{i}_{kind}": _mixer_layer_spec(cfg, "rec" if kind == "rec"
+                                                   else "attn")
+                 for i, kind in enumerate(pat)}
+        p["groups"] = stack_specs(group, n_groups)
+        if rem:
+            p["rem"] = {f"l{i}_rec": _mixer_layer_spec(cfg, "rec")
+                        for i in range(rem)}
+        return p
+    p["layers"] = stack_specs(_mixer_layer_spec(cfg, _layer_kind(cfg)),
+                              cfg.num_layers)
+    return p
 
 
 def compute_dtype(path: tuple, cfg: ModelConfig) -> torch.dtype:
@@ -125,14 +163,69 @@ def compute_params(params, cfg: ModelConfig, device=None):
 # Blocks
 
 
-def _layer(params, i: int):
-    """Layer ``i``'s parameters: views into the stacked leaves."""
-    return map_tree(lambda _, t: t[i], params["layers"])
+def _layers(cfg: ModelConfig) -> list:
+    """Every layer in order as (kind, keys, index): the layer's parameters
+    (and cache entry) are the tree at ``keys`` under the stack's root (the
+    parameters' ``layers`` dict, or the whole tree for the hybrid), at
+    ``index`` on its leading axis (None: unstacked, a ``rem`` layer)."""
+    if cfg.family != "hybrid":
+        return [(_layer_kind(cfg), (), i) for i in range(cfg.num_layers)]
+    pat, n_groups, rem = _hybrid_layout(cfg)
+    out = [(kind, ("groups", f"l{i}_{kind}"), g)
+           for g in range(n_groups) for i, kind in enumerate(pat)]
+    return out + [("rec", ("rem", f"l{i}_rec"), None) for i in range(rem)]
 
 
-def _apply_mixer(lp, x, cfg: ModelConfig, *, positions, cache=None, pos=None,
-                 rows=None):
+def _map(fn, tree):
+    """``fn`` over the tensors of a nested tree of dicts and tuples."""
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _select(tree, keys: tuple, index: Optional[int]):
+    """The subtree at ``keys``, as views at ``index`` of its leading axis."""
+    for key in keys:
+        tree = tree[key]
+    return tree if index is None else _map(lambda t: t[index], tree)
+
+
+def _stack_root(params, cfg: ModelConfig):
+    return params if cfg.family == "hybrid" else params["layers"]
+
+
+def _layer(params, i: int, cfg: ModelConfig):
+    """(kind, parameters) of layer ``i`` in the stack's order: views into
+    the stacked leaves."""
+    kind, keys, index = _layers(cfg)[i]
+    return kind, _select(_stack_root(params, cfg), keys, index)
+
+
+def _recurrent(apply, params, x, cfg: ModelConfig, cache, rows):
+    """A recurrent mixer (``ssm_apply``, ``rglru_apply``). Decode computes
+    every row's new state and writes it into ``cache`` in place, whole, for
+    the rows ``rows`` names (all when None), as JAX's engine commits its
+    member rows (``_merge_cache_rows``)."""
+    out, new = apply(params, x, cfg, state=cache)
+    if cache is None:
+        return out, new
+    for name, t in cache.items():
+        if rows is None:
+            t.copy_(new[name])
+        else:
+            t[rows] = new[name][rows]
+    return out, cache
+
+
+def _apply_mixer(lp, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
+                 pos=None, rows=None):
     """Temporal mixing sublayer. Returns (out, cache_entry)."""
+    if kind == "ssm":
+        return _recurrent(ssm_apply, lp["ssm"], x, cfg, cache, rows)
+    if kind == "rec":
+        return _recurrent(rglru_apply, lp["mix"], x, cfg, cache, rows)
     if cfg.mla:
         return mla_apply(lp["mix"], x, cfg, positions=positions, cache=cache,
                          pos=pos, rows=rows)
@@ -143,17 +236,19 @@ def _apply_mixer(lp, x, cfg: ModelConfig, *, positions, cache=None, pos=None,
                            pos=pos, rows=rows)
 
 
-def _block(lp, x, cfg: ModelConfig, *, positions, cache=None, pos=None,
-           rows=None):
-    """One residual layer: x + mixer(norm(x)); x + mlp(norm(x)). Returns
-    (x, cache_entry, metrics): the MoE layer's ``moe_aux`` and
-    ``moe_drop_frac``, empty for a dense MLP."""
+def _block(lp, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
+           pos=None, rows=None):
+    """One residual layer: x + mixer(norm(x)); x + mlp(norm(x)) (none for
+    an SSM layer). Returns (x, cache_entry, metrics): the MoE layer's
+    ``moe_aux`` and ``moe_drop_frac``, empty for a dense MLP."""
     h = norm_apply(lp["ln1"], x, cfg)
-    mix_out, cache_entry = _apply_mixer(lp, h, cfg, positions=positions,
+    mix_out, cache_entry = _apply_mixer(lp, h, cfg, kind, positions=positions,
                                         cache=cache, pos=pos, rows=rows)
     x = x + mix_out
+    if kind == "ssm":  # mamba2 blocks have no separate channel mixer
+        return x, cache_entry, {}
     h = norm_apply(lp["ln2"], x, cfg)
-    if _layer_kind(cfg) == "attn_moe":
+    if kind == "attn_moe":
         mlp_out, metrics = moe_apply(lp["mlp"], h, cfg)
     else:
         mlp_out, metrics = mlp_apply(lp["mlp"], h, cfg), {}
@@ -164,13 +259,34 @@ def _block(lp, x, cfg: ModelConfig, *, positions, cache=None, pos=None,
 # Forward (prefill)
 
 
+def _stack_entries(entries: list):
+    """Per-layer cache entries, (k, v)-like tuples or state dicts, stacked
+    on a new leading axis."""
+    if isinstance(entries[0], Mapping):
+        return {k: torch.stack([e[k] for e in entries]) for k in entries[0]}
+    return tuple(torch.stack(parts) for parts in zip(*entries))
+
+
+def _gather_caches(cfg: ModelConfig, layers: list, entries: list):
+    """The prefill caches in JAX's tree: stacked over the layers, or the
+    hybrid's ``{"groups": {name: stacked}, "rem": {name: entry}}``."""
+    if cfg.family != "hybrid":
+        return _stack_entries(entries)
+    tree = {"groups": {}, "rem": {}}
+    for (_, (top, name), _), entry in zip(layers, entries):
+        tree[top].setdefault(name, []).append(entry)
+    return {"groups": {n: _stack_entries(es) for n, es in tree["groups"].items()},
+            "rem": {n: es[0] for n, es in tree["rem"].items()}}
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, positions=None,
             return_cache: bool = False):
-    """tokens (B,S) -> (logits (B,S,V), metrics) [with the stacked layer
-    caches, (k, v) or MLA's (c_kv, k_pe), between them when
-    ``return_cache``]. ``metrics``: ``moe_aux`` summed over the layers and
-    ``moe_drop_frac`` their mean, fp32 scalars (zero without MoE), as
-    JAX's."""
+    """tokens (B,S) -> (logits (B,S,V), metrics) [with the layer caches
+    between them when ``return_cache``: stacked (k, v) or MLA's (c_kv,
+    k_pe), the SSM's stacked {"h", "conv"}, or the hybrid's {"groups",
+    "rem"} tree with raw (k, v) attention entries, as JAX's]. ``metrics``:
+    ``moe_aux`` summed over the layers and ``moe_drop_frac`` their mean,
+    fp32 scalars (zero without MoE), as JAX's."""
     check_ported(cfg)
     b, s = tokens.shape
     if positions is None:
@@ -179,10 +295,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, positions=None,
         if cfg.mrope_sections:
             positions = positions.expand(3, b, s)
     x = embed_apply(params["embed"], tokens, cfg)
+    root, layers = _stack_root(params, cfg), _layers(cfg)
     entries, auxs, drops = [], [], []
     zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(cfg.num_layers):
-        x, entry, metrics = _block(_layer(params, i), x, cfg,
+    for kind, keys, index in layers:
+        x, entry, metrics = _block(_select(root, keys, index), x, cfg, kind,
                                    positions=positions)
         if return_cache:
             entries.append(entry)
@@ -193,30 +310,48 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, positions=None,
     metrics = {"moe_aux": torch.stack(auxs).sum(),
                "moe_drop_frac": torch.stack(drops).mean()}
     if return_cache:
-        caches = tuple(torch.stack(parts) for parts in zip(*entries))
-        return logits, caches, metrics
+        return logits, _gather_caches(cfg, layers, entries), metrics
     return logits, metrics
 
 
 # ---------------------------------------------------------------------------
-# KV caches + decode
+# KV / state caches + decode
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
-    """Zeroed decode cache with a leading ``layers`` dim."""
-    check_ported(cfg)
-    lead = (cfg.num_layers, batch)
+def _attn_cache(cfg: ModelConfig, lead: tuple, max_len: int, dev) -> dict:
     if cfg.mla:
         m = cfg.mla
         shapes = {"c_kv": lead + (max_len, m.kv_lora),
                   "k_pe": lead + (max_len, m.qk_rope_dim)}
     else:
         t = max_len if cfg.attention != "local" else min(cfg.window, max_len)
-        shapes = dict.fromkeys(("k", "v"),
-                               lead + (t, cfg.num_kv_heads, cfg.dh))
-    dev = resolve_device(device)
+        shapes = dict.fromkeys(("k", "v"), lead + (t, cfg.num_kv_heads, cfg.dh))
     return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
             for name, shape in shapes.items()}
+
+
+def _stacked(state: dict, n: int) -> dict:
+    return {name: t.new_zeros((n,) + tuple(t.shape)) for name, t in state.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+    """Zeroed decode cache with the parameters' leading dims: attention in
+    the compute dtype, recurrent states in fp32."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return _stacked(ssm_init_state(cfg, batch, device=dev), cfg.num_layers)
+    if cfg.family == "hybrid":
+        pat, n_groups, rem = _hybrid_layout(cfg)
+        groups = {
+            f"l{i}_{kind}": _stacked(rglru_init_state(cfg, batch, device=dev),
+                                     n_groups) if kind == "rec"
+            else _attn_cache(cfg, (n_groups, batch), max_len, dev)
+            for i, kind in enumerate(pat)}
+        return {"groups": groups,
+                "rem": {f"l{i}_rec": rglru_init_state(cfg, batch, device=dev)
+                        for i in range(rem)}}
+    return _attn_cache(cfg, (cfg.num_layers, batch), max_len, dev)
 
 
 def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
@@ -224,14 +359,14 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
     """One decode step. tokens (B,1); ``pos`` a scalar (write slot and
     absolute position of every row) or a (B,) per-slot vector: a
     mixed-length slot batch decodes in one call, each row writing its
-    cache at (and attending up to) its own position. Returns (logits
-    (B,1,V), new cache).
+    cache at (and attending up to) its own position; recurrent layers
+    ignore it. Returns (logits (B,1,V), new cache).
 
-    ``rows=None``: functional, the returned cache is a new one. ``rows``
-    (int64 row ids): those rows' cache entries (keys and values, or MLA's
-    latents) are written into ``cache`` in place and it is returned;
-    other rows' caches are left bit for bit and their logits are
-    unspecified.
+    ``rows=None``: functional, the returned cache is a new one (the whole
+    tree cloned). ``rows`` (int64 row ids): those rows' cache entries
+    (keys and values, MLA's latents, or a recurrent layer's whole state)
+    are written into ``cache`` in place and it is returned; other rows'
+    caches are left bit for bit and their logits are unspecified.
     """
     check_ported(cfg)
     b = tokens.shape[0]
@@ -241,12 +376,13 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
         if cfg.mrope_sections:
             positions = positions.expand(3, b, 1)
     if rows is None:
-        cache = {name: t.clone() for name, t in cache.items()}
+        cache = _map(torch.clone, cache)
     x = embed_apply(params["embed"], tokens, cfg)
-    for i in range(cfg.num_layers):
-        layer_cache = {name: t[i] for name, t in cache.items()}
-        x, _, _ = _block(_layer(params, i), x, cfg, positions=positions,
-                         cache=layer_cache, pos=pos, rows=rows)
+    root = _stack_root(params, cfg)
+    for kind, keys, index in _layers(cfg):
+        x, _, _ = _block(_select(root, keys, index), x, cfg, kind,
+                         positions=positions, cache=_select(cache, keys, index),
+                         pos=pos, rows=rows)
     x = norm_apply(params["final_norm"], x, cfg)
     return unembed_apply(params["embed"], x, cfg), cache
 
@@ -254,9 +390,15 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             max_len: Optional[int] = None, positions=None):
     """Run the prompt, return (logits, cache ready for decode_step at
-    pos = S)."""
+    pos = S). The SSM and hybrid caches are returned as ``forward`` gives
+    them, as JAX's are: the SSM's final states are decode-ready; the
+    hybrid's attention entries stay raw (k, v) tuples over the whole
+    prompt, which ``decode_step`` cannot read (it raises ``TypeError``, as
+    JAX's does)."""
     logits, caches, _ = forward(params, tokens, cfg, positions=positions,
                                 return_cache=True)
+    if cfg.family in ("ssm", "hybrid"):
+        return logits, caches
     s = tokens.shape[1]
     max_len = max_len or s
     if cfg.mla:
@@ -276,4 +418,3 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     return logits, {"k": k, "v": v}
-

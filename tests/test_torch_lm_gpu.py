@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
-from repro_torch.models import mla, module, moe, transformer  # noqa: E402
+from repro_torch.models import griffin, mla, module, moe, ssm, transformer  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -35,9 +35,11 @@ def cuda():
                                      ("olmo-1b", dict(attention="knn",
                                                       knn_neighbors=3)),
                                      ("deepseek-v2-lite-16b", {}),
-                                     ("qwen3-moe-235b-a22b", {})],
+                                     ("qwen3-moe-235b-a22b", {}),
+                                     ("mamba2-370m", {}),
+                                     ("recurrentgemma-9b", dict(num_layers=5))],
                          ids=["olmo", "qwen2-vl", "olmo-knn", "deepseek",
-                              "qwen3-moe"])
+                              "qwen3-moe", "mamba2", "recurrentgemma-5l"])
 def test_engine_on_card_equals_cpu(cuda, arch, kw):
     """The LM ServeEngine at SMOKE widths in fp32: the card's tokens and
     decode calls equal the CPU's on mixed prompts, more requests than
@@ -103,6 +105,63 @@ def test_mla_layer_on_card_equals_cpu(cuda):
         runs[str(dev)] = [t.cpu() for t in (out, c, k, dec[:1], *cache.values())]
     for got, want in zip(runs["cuda"], runs["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_layer_on_card_equals_cpu(cuda, arch):
+    """fp32, TF32 off: the SSD or RG-LRU block's prefill and two decode
+    steps from its final state, outputs and states within rtol 1e-4, atol
+    1e-5 (sums in other orders)."""
+    cfg = get_smoke(arch).replace(dtype="float32")
+    mod = ssm if cfg.family == "ssm" else griffin
+    spec = ssm.ssm_spec(cfg) if mod is ssm else griffin.rglru_spec(cfg)
+    apply = ssm.ssm_apply if mod is ssm else griffin.rglru_apply
+    p = module.init_params(spec, device="cpu",
+                           generator=torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 9, cfg.d_model)).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        pd = _on(p, dev)
+        out, st = apply(pd, x[:, :7].to(dev), cfg)
+        outs = [out]
+        for t in (7, 8):
+            o, st = apply(pd, x[:, t:t + 1].to(dev), cfg, state=st)
+            outs.append(o)
+        runs[str(dev)] = [t.cpu() for t in (*outs, *st.values())]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_hybrid_decode_commit_on_card_equals_cpu(cuda):
+    """The hybrid's nested cache through ``decode_step(rows=)`` on the
+    card: a member-row commit at (B,) positions, one group and two ``rem``
+    layers; logits of the member rows and every cache leaf within JAX's
+    LM tolerance, rtol 2e-3 and atol 2e-4 times the leaf's largest
+    magnitude (at least 1), of the CPU's: the group's stacked init has
+    fan-in 1, so its saturated RG-LRU gates carry the rounding of sums in
+    other orders into the state (``tools/hybrid_fp32_gap.py``); non-member
+    rows untouched."""
+    cfg = get_smoke("recurrentgemma-9b").replace(dtype="float32", num_layers=5)
+    p = module.init_params(transformer.param_spec(cfg), device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 6)).astype(np.int32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        pd, cache = _on(p, dev), transformer.init_cache(cfg, 3, 8, device=dev)
+        for t in range(6):
+            pos = torch.tensor([t, t + 1, 0], device=dev)
+            lg, cache = transformer.decode_step(
+                pd, cache, toks[:, t:t + 1].to(dev), pos, cfg,
+                rows=torch.tensor([0, 1], device=dev))
+        leaves = module.leaves(cache)
+        for path, t in leaves.items():
+            assert not t.select(0 if path[0] == "rem" else 1, 2).any(), path
+        runs[str(dev)] = [lg[:2].cpu(), *(t.cpu() for t in leaves.values())]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4 * scale)
 
 
 def test_init_in_compute_dtype_on_card(cuda):
