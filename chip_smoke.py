@@ -190,13 +190,63 @@ Phases, each printed as it runs; any failure exits non-zero:
     layers of the hybrid, whose prefill cache cannot be decoded, as
     JAX's) and the card against the CPU at 2 layers (tokens equal, logits
     within ``RECURRENT_TOL_RMS``); last the hybrid's 4-layer fp32 drift
-    (one group: the decode loop against ``forward``, measured, finite).
+    (one group: the decode loop against ``forward``, measured, finite);
+25. the encoder-decoder (plain PyTorch, no kernel of its own: JAX's
+    encoder-decoder is einsums and softmaxes): ``whisper-tiny`` at full
+    width (4 encoder and 4 decoder layers, d_model 384, 6 heads of 64,
+    vocab 51865, ``dec_pos`` of 65536 rows, bf16, seeded init) through
+    ``get_api``: 4 requests of 1500 seeded frames and a 4-token prompt,
+    ``prefill_fn`` filling a cache from ``init_cache(4, max_len=68,
+    enc_len=1500)``, then 64 greedy ``decode_fn`` steps: every token in
+    range, every logit finite, no kernel launched, tokens/s, the peak
+    memory; the decode step by CUDA events and profiled against its bound
+    (the decoder's and embedding's weights and the memory's ``mk`` /
+    ``mv`` read once); in fp32 at full width every greedy token the argmax
+    of teacher-forced ``decode_forward`` over the generated prefix (or a
+    near-tie there) and the median position's logits within
+    ``LM_TOL_RMS`` of their RMS, the positions beyond it counted and the
+    largest gap printed (the reference's init makes the attention
+    one-hot, so an fp32 near-tie between keys moves a position's logits
+    by 10-30%, in JAX too); at 2 + 2 layers the card's decoder on the
+    CPU's encoder memory, fed the CPU's greedy tokens, against the CPU,
+    held the same way, and the two devices' memories' gap printed (at
+    1500 frames the reference's own encoder moves that far under a
+    one-ulp change of its input);
+26. training (no kernel launched but in (c)'s serving): (a) ``olmo-1b``
+    at full width (remat full, bf16 params, fp32 master) through
+    ``launch.train.main --batch 8 --seq 128 --steps 34 --ckpt-every 15``
+    into a temporary directory: every loss finite, the last fifth's mean
+    below the first fifth's, the steady step by CUDA events, the peak
+    memory; a second ``main`` on the directory resumes at step 30, the
+    restored tree (params and ``OptState``) holds the saved values bit
+    for bit, and its losses equal the first run's steps 30-33 within 1e-3
+    relative (bit for bit where printed); then one step split by CUDA
+    events into forward, backward, recompute and optimizer, each beside
+    its bound, and profiled (busy share); (b) one train step of
+    ``whisper-tiny`` (8 x 1500 frames, 128 decoder tokens) and of
+    ``mamba2-370m`` (8 x 128) at full width: loss and grad norm finite,
+    the norm > 0, the params changed; one fp32 step per family (dense,
+    vlm, moe, ssm, hybrid, audio) at SMOKE width and 2 layers on the card
+    and on the CPU: loss and grad norm within 1e-4 relative (the grad
+    norm within 1e-2 for the hybrid and audio archs, whose SMOKE init
+    leaves fp32 ill-conditioned); (c) ``vig_ti_iso`` at full width (224²,
+    1000 classes, B = 8, ``blocked``) through ``launch.train_vig.main
+    --full`` for 30 steps: the loss finite and falling, the steady step,
+    the peak memory; ``--digc-impl cuda`` fails at its first step (the
+    MRConv kernel has no backward); the trained weights served through
+    ``VigServeEngine(digc_impl="cuda")`` on phase 4's trace, each request
+    bit for bit the eager forward of its bucket batch, both kernels
+    launched once a block a tick, each layer's neighbour lists against
+    the ``blocked`` tier's on the recorded features (equal but at fp32
+    near-ties; the fraction printed) and the logit gap to the ``blocked``
+    forward printed.
 
 Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
-tier, which must launch none; so do phase 21's cluster engines and the LM
-phases 22, 23 and 24). A
+tier, which must launch none; so do phase 21's cluster engines, the LM
+phases 22, 23 and 24, and phases 25 and 26's runs but the served trained
+weights, which must launch both kernels). A
 replayed graph adds the launches its capture recorded. Every engine
 outside phases 17 and 21 (c) must end with
 ``fallback_level`` 0 and no logged fault. The line before the last is the kernel summary
@@ -207,8 +257,10 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -242,6 +294,14 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import module, moe, transformer as tr  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sched import VirtualClock, arrival_trace, replay  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
+from repro_torch.core.digc import digc_blocked  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, synth_lm_batch  # noqa: E402
+from repro_torch.launch import train as lm_train, train_vig  # noqa: E402
+from repro_torch.launch.api import get_api  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
+from repro_torch.train import optimizer  # noqa: E402
+from repro_torch.train.trainer import init_train_state, make_train_step, value_and_grad  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32
 # and bf16 on the tensor cores, HBM3 rate.
@@ -3231,6 +3291,599 @@ def recurrent_serving() -> None:
     print(f"phase 24 wall time: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 25: the encoder-decoder served on the card, whisper-tiny at full
+# width: 4 requests of 1500 frames and a 4-token prompt, 64 greedy steps.
+WHISPER = dict(requests=4, prompt=4, new=64, frames=1500)
+# The stacked init takes the layer count as the fan-in, so whisper's
+# attention logits spread ~100 and its softmax is one-hot: where two keys
+# are within rounding, two orders of the same fp32 sums pick different
+# ones, and that position's output moves by 10-30% of its RMS. At 1500
+# frames the encoder is chaotic: JAX's decode_forward on frames moved by
+# one ulp is a median 0.125 of the logits' RMS from itself at 4 + 4
+# layers (tools/whisper_fp32_gap.py, CPU). So phase 25 holds, within one
+# device, every greedy token to the teacher-forced argmax or a near-tie
+# and the median position to LM_TOL_RMS (the memory is shared; the
+# reference's own decode loop is a median 0.0011 from its decode_forward,
+# its largest 0.109); across devices, the card's decoder on the CPU's
+# memory, the same way, and prints the two encoders' gap.
+
+
+def whisper_inputs(cfg, b: int, n_frames: int, seed: int):
+    """Seeded frames (b, n_frames, d_model) and prompts (b, 4)."""
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((b, n_frames, cfg.d_model)).astype(np.float32)
+    prompt = rng.integers(0, cfg.vocab_size, (b, WHISPER["prompt"])).astype(np.int32)
+    return frames, prompt
+
+
+def whisper_greedy(cfg, params, frames, prompt, n_new: int, device, feed=None,
+                   memory=None):
+    """``prefill_fn`` on the frames and prompts (or, given the encoder's
+    ``memory``, ``decode_forward`` over it), its (self_kv, mem_kv) copied
+    into a cache from ``init_cache(max_len=prompt + n_new)``, then
+    ``n_new`` greedy ``decode_fn`` steps (fed ``feed``'s tokens instead of
+    their own argmaxes when given). Returns (tokens (B, n_new + 1): the
+    prefill's argmax and each step's, their logits, the cache)."""
+    api = get_api(cfg)
+    b, s = prompt.shape
+    with torch.inference_mode():
+        tokens = torch.from_numpy(prompt).to(device)
+        if memory is None:
+            logits, (self_kv, mem_kv) = api.prefill_fn(
+                params, {"frames": torch.from_numpy(frames).to(device),
+                         "tokens": tokens})
+        else:
+            logits, (self_kv, mem_kv) = encdec.decode_forward(
+                params, tokens, memory.to(device), cfg, return_cache=True)
+        cache = api.init_cache(b, s + n_new, enc_len=frames.shape[1], device=device)
+        for name, t in zip(("k", "v", "mk", "mv"), self_kv + mem_kv):
+            cache[name][:, :, :t.shape[2]] = t
+        outs = [logits[:, -1].float()]
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks = [tok]
+        for t in range(s, s + n_new):
+            if feed is not None:
+                tok = feed[:, t - s:t - s + 1].to(device)
+            lg, cache = api.decode_fn(params, cache, tok, t)
+            outs.append(lg[:, 0].float())
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+            toks.append(tok)
+    return torch.cat(toks, 1), torch.stack(outs, 1), cache
+
+
+def near_ties(ref, toks, logits) -> int:
+    """The tokens that are not ``ref``'s argmax, each required to be a
+    near-tie there: its logit within twice that position's |logit diff|
+    between the two passes of the best one. Returns their count."""
+    want = ref.argmax(-1)
+    gap = (ref.gather(-1, want[..., None]) - ref.gather(-1, toks[..., None].long()))[..., 0]
+    diff = (logits - ref).abs().amax(-1)
+    if bool((gap > 2 * diff).any()):
+        raise AssertionError(f"tokens {toks.tolist()} against argmaxes {want.tolist()}: "
+                             f"logit gaps {gap.tolist()} beyond the passes' difference")
+    return int((toks != want).sum())
+
+
+def fp32_drift_line(per_pos: torch.Tensor, ties: int, what: str) -> str:
+    """Holds the median position's max |logit diff| (over the RMS) to
+    ``LM_TOL_RMS``; returns the line that prints the drift."""
+    med = float(per_pos.median())
+    if not bool(torch.isfinite(per_pos).all()) or med > LM_TOL_RMS:
+        raise AssertionError(f"{what}: median position's max |logit diff| {med} "
+                             f"of the RMS (tolerance {LM_TOL_RMS})")
+    return (f"{what}: every token the argmax or a near-tie ({ties} near-ties of "
+            f"{per_pos.numel()}), the median position's max |logit diff| "
+            f"{med:.3g} of the logits' RMS (tolerance {LM_TOL_RMS}); "
+            f"{int((per_pos > LM_TOL_RMS).sum())} positions beyond it, the "
+            f"largest {float(per_pos.max()):.3g} (attention near-ties)")
+
+
+def greedy_equals_teacher(cfg, params, frames, prompt, toks, logits) -> None:
+    """Each greedy token is the argmax of teacher-forced ``decode_forward``
+    over the generated prefix, or a near-tie there (``near_ties``); the
+    step logits against the teacher-forced ones by ``fp32_drift_line``."""
+    dev = toks.device
+    s = prompt.shape[1]
+    with torch.inference_mode():
+        memory = encdec.encode(params, torch.from_numpy(frames).to(dev), cfg)
+        seq = torch.cat([torch.from_numpy(prompt).to(dev), toks[:, :-1].to(torch.int32)], 1)
+        full = encdec.decode_forward(params, seq, memory, cfg)[:, s - 1:].float()
+    rms = float(full.pow(2).mean().sqrt())
+    per_pos = (logits - full).abs().amax(-1) / rms
+    ties = near_ties(full, toks, logits)
+    print(fp32_drift_line(per_pos, ties, f"{cfg.dtype} {cfg.num_layers} + "
+                          f"{cfg.encdec.enc_layers} layers, greedy decode_fn against "
+                          "teacher-forced decode_forward"))
+
+
+def encdec_step_bound(cfg, params, cache, b: int) -> tuple[float, str, str]:
+    """The decode step's least time: the decoder's and the embedding's
+    weights read once, the cross attention's memory ``mk`` / ``mv`` and
+    the self-attention cache read once."""
+    dec = {k: params[k] for k in ("embed", "dec", "final_norm")}
+    n_dec = sum(t.numel() for t in module.leaves(dec).values())
+    mem = tensor_bytes({k: cache[k] for k in ("mk", "mv")})
+    kv = tensor_bytes({k: cache[k] for k in ("k", "v")})
+    t_all = cache["mk"].shape[2] + cache["k"].shape[2]
+    flops = 2.0 * b * n_dec + 4.0 * b * cfg.num_layers * cfg.num_heads * cfg.dh * t_all
+    ms, by = bound(flops, tensor_bytes(dec) + mem + kv, PEAK_BF16_FLOPS)
+    return ms, by, (f"{tensor_bytes(dec) / 1e6:.1f} MB of decoder and embedding "
+                    f"weights + {mem / 1e6:.1f} MB of mk/mv + {kv / 1e6:.2f} MB "
+                    "of self-attention cache")
+
+
+def encdec_serving() -> None:
+    t_phase = time.perf_counter()
+    phase("25. the encoder-decoder on the card: whisper-tiny at full width")
+    cfg = lm_configs.get_config("whisper-tiny")
+    api = get_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = module.init_params(api.param_spec(), device=DEV,
+                                generator=torch.Generator(device=DEV).manual_seed(0),
+                                dtype_of=lambda path: tr.compute_dtype(path, cfg))
+    frames, prompt = whisper_inputs(cfg, WHISPER["requests"], WHISPER["frames"], 10)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, logits, cache = whisper_greedy(cfg, params, frames, prompt,
+                                         WHISPER["new"], DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = toks.numel()
+    if (not bool(torch.isfinite(logits).all()) or fired(counts)
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+        raise AssertionError(f"finite logits {bool(torch.isfinite(logits).all())}, "
+                             f"tokens in range, launches {fired(counts)} (none expected)")
+    n_params = sum(t.numel() for t in module.leaves(params).values())
+    print(f"served {WHISPER['requests']} requests of {WHISPER['frames']} frames "
+          f"and {WHISPER['prompt']} prompt tokens: prefill + "
+          f"{WHISPER['new']} greedy decode_fn steps, {n_tok} tokens in "
+          f"{seconds:.3f} s ({n_tok / seconds:.1f} tokens/s); {n_params / 1e6:.3f} M "
+          f"parameters ({tensor_bytes(params) / 1e6:.1f} MB in the compute "
+          f"dtypes); every token in range, every logit finite, no kernel launched; "
+          f"peak device memory allocated {(peak - base) / 1e9:.3f} GB above "
+          f"{base / 1e9:.3f} GB")
+    tok = toks[:, -1:].contiguous()
+
+    def step():
+        with torch.inference_mode():
+            api.decode_fn(params, cache, tok, WHISPER["prompt"] + WHISPER["new"] - 1)
+
+    step()
+    step_ms = _events_ms(step, 20)
+    prof = profile_call(step)
+    bound_ms, by, what = encdec_step_bound(cfg, params, cache, WHISPER["requests"])
+    print(f"decode step, {WHISPER['requests']} rows: {step_ms:.3f} ms (CUDA events, "
+          f"20 steps); profiled: {prof['host_launches']} host launch calls, "
+          f"{prof['kernels']} device kernels, device busy {prof['busy_ms']:.3f} ms "
+          f"= {100 * prof['busy_ms'] / step_ms:.1f}% of the step; bound "
+          f"{bound_ms:.4f} ms ({by}: {what}), {100 * bound_ms / step_ms:.2f}% of "
+          "the step")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = module.init_params(api.param_spec(), device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(1))
+    toks, logits, _ = whisper_greedy(cfg32, p32, frames, prompt, WHISPER["new"], DEV)
+    greedy_equals_teacher(cfg32, p32, frames, prompt, toks, logits)
+    del p32
+    torch.cuda.empty_cache()
+    cfg2 = cfg32.replace(num_layers=2, encdec=dataclasses.replace(cfg.encdec,
+                                                                  enc_layers=2))
+    p_dev = module.init_params(encdec.encdec_param_spec(cfg2), device=DEV,
+                               generator=torch.Generator(device=DEV).manual_seed(2))
+    p_cpu = module.map_tree(lambda _, t: t.cpu(), p_dev)
+    frames2, prompt2 = whisper_inputs(cfg2, 2, WHISPER["frames"], 11)
+    with torch.inference_mode():
+        mem_cpu = encdec.encode(p_cpu, torch.from_numpy(frames2), cfg2)
+        mem_dev = encdec.encode(p_dev, torch.from_numpy(frames2).to(DEV), cfg2).cpu()
+    rows = (mem_dev - mem_cpu).abs().amax(-1) / mem_cpu.pow(2).mean().sqrt()
+    t_cpu, l_cpu, _ = whisper_greedy(cfg2, p_cpu, frames2, prompt2, 8, "cpu")
+    # the card decodes the CPU's memory, fed the CPU's tokens, so that
+    # neither the encoder's near-ties nor a decoder near-tie can fork it
+    t_dev, l_dev, _ = whisper_greedy(cfg2, p_dev, frames2, prompt2, 8, DEV,
+                                     feed=t_cpu[:, :-1], memory=mem_cpu)
+    l_dev = l_dev.cpu()
+    rms = float(l_cpu.pow(2).mean().sqrt())
+    per_pos = (l_dev - l_cpu).abs().amax(-1) / rms
+    ties = near_ties(l_cpu, t_dev.cpu(), l_dev)
+    print(f"2 + 2 layers, full width, fp32, the encoder's memory on the card against "
+          f"the CPU's (printed, not held: the reference's own one-ulp sensitivity, "
+          f"tools/whisper_fp32_gap.py): the median row's max |diff| "
+          f"{float(rows.median()):.3g} of the memory's RMS, the largest "
+          f"{float(rows.max()):.3g}")
+    print(fp32_drift_line(per_pos, ties, "2 + 2 layers, full width, fp32, the card's "
+                          "decoder on the CPU's memory and tokens against the CPU"))
+    del p_dev
+    torch.cuda.empty_cache()
+    print(f"phase 25 wall time: {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 26: training on the card. (a) olmo-1b through launch.train.main:
+# 34 steps with a checkpoint every 15 (the newest at step 30), then a
+# second main on the same directory resumes at step 30 and repeats steps
+# 30-33. Each checkpoint is 16.5 GB (bf16 params, fp32 moments and
+# master); the card's machine takes 45 GiB of disk writes a run, so two.
+TRAIN_FLAGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "128", "--steps", "34",
+               "--ckpt-every", "15", "--device", "cuda"]
+RESUME_STEP = 30
+# The card against the CPU: one fp32 train step at SMOKE width and 2
+# layers for each family. Loss and grad norm within 1e-4 relative; the grad
+# norm of the two families whose SMOKE init leaves fp32 ill-conditioned
+# (tools/grad_fp64_gap.py) within 1e-2.
+FAMILY_ARCHS = {"dense": "olmo-1b", "vlm": "qwen2-vl-72b",
+                "moe": "deepseek-v2-lite-16b", "ssm": "mamba2-370m",
+                "hybrid": "recurrentgemma-9b", "audio": "whisper-tiny"}
+ILL_CONDITIONED = ("hybrid", "audio")
+
+
+def timing_steps(mod, times: list):
+    """Patch ``mod.make_train_step`` so that each step it returns records
+    CUDA events around itself into ``times``; returns the original."""
+    real = mod.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def timed(*a):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = step(*a)
+            e.record()
+            times.append((s, e))
+            return out
+
+        return timed
+
+    mod.make_train_step = make
+    return real
+
+
+def steady_ms(times: list, skip: int = 3) -> float:
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times[skip:])
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.to(b.dtype), b) and torch.equal(
+        a, b.to(a.dtype))
+
+
+def trained_olmo(tmp: str) -> dict:
+    """(a)'s two ``main`` runs. Returns what (a)'s later checks read."""
+    times: list = []
+    kept: dict = {}
+    real_make = timing_steps(lm_train, times)
+    real_saver, real_restore = ckpt.AsyncCheckpointer, ckpt.restore
+
+    class Keeping(real_saver):
+        def save(self, step, tree):
+            if step == RESUME_STEP:  # the update is functional: never mutated
+                kept["saved"] = tree
+            super().save(step, tree)
+
+    def restoring(ckpt_dir, tree_like, **kw):
+        tree, step = real_restore(ckpt_dir, tree_like, **kw)
+        saved = ckpt._flatten(kept.pop("saved"))
+        got = ckpt._flatten(tree)
+        kept["restored_equal"] = saved.keys() == got.keys() and all(
+            same_bits(got[k], saved[k]) for k in saved)
+        kept["restored"] = (step, len(got), sorted({f"{got[k].dtype}<-{saved[k].dtype}"
+                                                    for k in got}))
+        return tree, step
+
+    ckpt.AsyncCheckpointer, ckpt.restore = Keeping, restoring
+    flags = TRAIN_FLAGS + ["--ckpt-dir", tmp]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = lm_train.main(flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        step_ms = steady_ms(times)
+        n_steps = len(times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed = lm_train.main(flags)
+        counts = launch_counts()
+    finally:
+        lm_train.make_train_step = real_make
+        ckpt.AsyncCheckpointer, ckpt.restore = real_saver, real_restore
+    return dict(losses=losses, resumed=resumed, seconds=seconds, peak=peak,
+                step_ms=step_ms, n_steps=n_steps, counts=counts, **kept)
+
+
+def olmo_step_split(cfg) -> None:
+    """One steady step's parts by CUDA events, each beside its bound, and
+    the whole step profiled: the forward (no grad), the backward (the
+    loss's grads without remat, less the forward), the recompute (the
+    grads with ``remat="full"`` less those without) and the optimizer
+    (``adamw_update``)."""
+    api = get_api(cfg)
+    p32 = module.init_params(api.param_spec(), device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(0))
+    state = init_train_state(p32)
+    params = module.map_tree(lambda _, t: t.to(torch.bfloat16), p32)
+    del p32
+    oc = optimizer.OptConfig(lr=3e-4, warmup_steps=3, total_steps=34)
+    batch = lm_train.to_device(synth_lm_batch(DataConfig(128, 8, cfg.vocab_size), 0), DEV)
+    n = sum(t.numel() for t in module.leaves(params).values())
+    tokens = 8 * 128
+    n_mm = n - params["embed"]["tokens"].numel()  # the lookup is no product
+    attn = 4.0 * 8 * 128 * 128 * cfg.d_model * cfg.num_layers
+    fwd_flops = 2.0 * tokens * n_mm + attn
+
+    def forward():
+        with torch.no_grad():
+            api.loss_fn(params, batch, cfg)
+
+    grads = value_and_grad(api.loss_fn, params, batch, cfg)[2]
+
+    def opt_update():
+        optimizer.adamw_update(grads, state, oc, params_dtype=torch.bfloat16)
+
+    step = make_train_step(cfg, oc, loss_fn=api.loss_fn)
+    parts = {"forward": forward,
+             "grads, no remat": lambda: value_and_grad(api.loss_fn, params, batch,
+                                                       cfg.replace(remat="none")),
+             "grads, remat full": lambda: value_and_grad(api.loss_fn, params, batch, cfg),
+             "optimizer": opt_update,
+             "step": lambda: step(params, state, batch)}
+    ms = {}
+    for name, fn in parts.items():
+        fn()
+        ms[name] = _events_ms(fn, 3)
+    bounds = {"forward": bound(fwd_flops, 2.0 * n, PEAK_BF16_FLOPS),
+              "backward": bound(2 * fwd_flops, 4.0 * n, PEAK_BF16_FLOPS),
+              "recompute": bound(fwd_flops - 2.0 * tokens * cfg.d_model * cfg.vocab_size,
+                                 2.0 * n, PEAK_BF16_FLOPS),
+              "optimizer": bound(12.0 * n, 28.0 * n, PEAK_FP32_FLOPS)}
+    split = {"forward": ms["forward"],
+             "backward": ms["grads, no remat"] - ms["forward"],
+             "recompute": ms["grads, remat full"] - ms["grads, no remat"],
+             "optimizer": ms["optimizer"]}
+    total_bound = sum(b for b, _ in bounds.values())
+    for name, part in split.items():
+        b_ms, by = bounds[name]
+        print(f"  {name:9s} {part:8.3f} ms (CUDA events, 3 calls) against a bound of "
+              f"{b_ms:.3f} ms ({by})")
+    prof = profile_call(parts["step"])
+    print(f"olmo-1b train step at 8 x 128 tokens: {ms['step']:.3f} ms (CUDA events, 3 "
+          f"steps), parts sum {sum(split.values()):.3f} ms, bound {total_bound:.3f} ms "
+          f"({100 * total_bound / ms['step']:.1f}% of the step); profiled: "
+          f"{prof['host_launches']} host launch calls, {prof['kernels']} device "
+          f"kernels, device busy {prof['busy_ms']:.3f} ms = "
+          f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of the profiled step's "
+          f"{prof['wall_ms']:.3f} ms")
+
+
+def olmo_training() -> None:
+    cfg = lm_configs.get_config("olmo-1b")
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        run = trained_olmo(tmp)
+    losses, resumed = run["losses"], run["resumed"]
+    k = max(len(losses) // 5, 1)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    if not (np.isfinite(losses).all() and last < first) or fired(run["counts"]):
+        raise AssertionError(f"losses {losses}, launches {fired(run['counts'])}")
+    print(f"olmo-1b, full width (16 layers, d_model 2048, vocab 50304, remat full, "
+          f"bf16 params, fp32 master), launch.train.main {' '.join(TRAIN_FLAGS)}: "
+          f"{run['n_steps']} steps in {run['seconds']:.1f} s (checkpoints every 15 "
+          f"on a disk with {free / 1e9:.1f} GB free), every loss finite, first-fifth "
+          f"mean {first:.4f} -> last-fifth mean {last:.4f}; steady step "
+          f"{run['step_ms']:.3f} ms (median by CUDA events after 3 steps); peak "
+          f"device memory allocated {run['peak'] / 1e9:.3f} GB; no kernel launched")
+    step, n_leaves, casts = run["restored"]
+    if not run["restored_equal"] or step != RESUME_STEP:
+        raise AssertionError(f"restored step {step}: tree bit for bit the saved "
+                             f"one: {run['restored_equal']}")
+    print(f"resumed from step {step}: all {n_leaves} leaves (params and OptState) "
+          f"equal the saved ones bit for bit (restored <- saved dtypes: {casts})")
+    straight = losses[RESUME_STEP:]
+    if len(resumed) != len(straight) or not np.allclose(resumed, straight, rtol=1e-3):
+        raise AssertionError(f"resumed losses {resumed} against {straight}")
+    bitwise = [a == b for a, b in zip(resumed, straight)]
+    print(f"resumed steps {RESUME_STEP}-{RESUME_STEP + len(resumed) - 1}: losses "
+          f"{[round(x, 6) for x in resumed]} against the straight run's "
+          f"{[round(x, 6) for x in straight]}, within 1e-3 relative (max "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(resumed, straight)):.3g}); bit "
+          f"for bit: {bitwise}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    olmo_step_split(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def one_full_step(arch: str, batch: dict) -> None:
+    """One train step at full width (fp32 seeded init, bf16 params after
+    the step): the loss and grad norm finite, the norm > 0, the params
+    changed."""
+    cfg = lm_configs.get_config(arch)
+    api = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = module.init_params(api.param_spec(), device=DEV,
+                                generator=torch.Generator(device=DEV).manual_seed(0))
+    n = sum(t.numel() for t in module.leaves(params).values())
+    step = make_train_step(cfg, optimizer.OptConfig(lr=1e-3, warmup_steps=1,
+                                                    total_steps=10), loss_fn=api.loss_fn)
+    first = next(iter(module.leaves(params).values())).clone()
+    t0 = time.perf_counter()
+    new, _, m = step(params, init_train_state(params), batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    seconds = time.perf_counter() - t0
+    moved = not torch.equal(next(iter(module.leaves(new).values())).float(), first)
+    if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0 and moved):
+        raise AssertionError(f"{arch}: loss {loss}, grad norm {gnorm}, params moved {moved}")
+    print(f"{arch} at full width ({n / 1e9:.3f} B parameters, remat {cfg.remat}), one "
+          f"train step on {' x '.join(str(x) for x in batch['tokens'].shape)} tokens"
+          + (f" and {tuple(batch['frames'].shape)} frames" if "frames" in batch else "")
+          + f": loss {loss:.4f}, grad norm {gnorm:.4f}, params changed; first step "
+          f"{seconds:.2f} s (host clock, allocation included), peak device memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del params, new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_batch(cfg, b: int = 2, s: int = 16) -> dict:
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+             "mask": np.ones((b, s), np.float32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    if cfg.mrope_sections:
+        pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+        batch["positions"] = np.ascontiguousarray(np.broadcast_to(pos, (3, b, s)))
+    return batch
+
+
+def families_card_equals_cpu() -> None:
+    oc = optimizer.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for family, arch in FAMILY_ARCHS.items():
+        cfg = lm_configs.get_smoke(arch).replace(dtype="float32", num_layers=2)
+        api = get_api(cfg)
+        p_cpu = module.init_params(api.param_spec(), device="cpu",
+                                   generator=torch.Generator().manual_seed(0))
+        batch = family_batch(cfg)
+        out = {}
+        for dev in ("cpu", DEV):
+            params = module.map_tree(lambda _, t: t.to(dev), p_cpu)
+            step = make_train_step(cfg, oc, loss_fn=api.loss_fn,
+                                   param_dtype=torch.float32)
+            _, _, m = step(params, init_train_state(params), lm_train.to_device(batch, dev))
+            out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+        (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(DEV)]
+        tol = 1e-2 if family in ILL_CONDITIONED else 1e-4
+        if abs(l_dev - l_cpu) > 1e-4 * abs(l_cpu) or abs(g_dev - g_cpu) > tol * g_cpu:
+            raise AssertionError(f"{family} ({arch}): card loss {l_dev}, grad norm "
+                                 f"{g_dev}; CPU {l_cpu}, {g_cpu}")
+        print(f"  {family:6s} {arch:21s} card = CPU: loss {l_dev:.6f} (rel "
+              f"{abs(l_dev - l_cpu) / abs(l_cpu):.2g}), grad norm {g_dev:.6f} (rel "
+              f"{abs(g_dev - g_cpu) / g_cpu:.2g}, tolerance {tol})")
+
+
+def vig_training() -> None:
+    times: list = []
+    real_make = timing_steps(train_vig, times)
+    flags = ["--full", "--num-classes", "1000", "--steps", "30", "--batch", "8",
+             "--device", "cuda"]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_vig.main(flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = steady_ms(times)
+    finally:
+        train_vig.make_train_step = real_make
+    losses = out["losses"]
+    k = max(len(losses) // 5, 1)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    if not (np.isfinite(losses).all() and last < first) or fired(counts):
+        raise AssertionError(f"ViG losses {losses}, launches {fired(counts)}")
+    print(f"vig_ti_iso at full width (224^2, D = 192, 12 blocks, 1000 classes, B = 8, "
+          f"blocked) through launch.train_vig.main {' '.join(flags)}: {len(losses)} "
+          f"steps in {seconds:.1f} s, every loss finite, first-fifth mean {first:.4f} "
+          f"-> last-fifth mean {last:.4f}; steady step {step_ms:.3f} ms (median by "
+          f"CUDA events after 3 steps); peak device memory allocated "
+          f"{peak / 1e9:.3f} GB; no kernel launched")
+    try:
+        train_vig.main(["--full", "--num-classes", "1000", "--steps", "1", "--batch",
+                        "8", "--digc-impl", "cuda", "--device", "cuda"])
+    except NotImplementedError as e:
+        if "item 20" not in str(e):
+            raise
+        print(f"--digc-impl cuda fails at its first step: {e}")
+    else:
+        raise AssertionError("--digc-impl cuda trained: the MRConv kernel has no backward")
+    serve_trained(out["cfg"], out["params"])
+
+
+def serve_trained(cfg, params) -> None:
+    """The trained weights served through both kernels on phase 4's trace,
+    each request bit for bit the eager ``cuda`` forward of its bucket batch;
+    each layer's neighbour lists against the ``blocked`` tier's on the
+    recorded features."""
+    images = [testing.images(uid, 1, cfg.image_size)[0] for uid in range(20)]
+    eng = VigServeEngine(cfg, params, digc_impl="cuda", device=DEV)
+    serve_trace(eng, images)  # warm-up: first use of each bucket
+    reset_launch_counts()
+    batches: list = []
+    reqs, _, _ = serve_trace(eng, images, batches)
+    counts = launch_counts()
+    assert_no_faults(eng, "serving the trained vig_ti_iso")
+    want = sum(cfg.depths) * len(trace_ticks())  # one launch each a block
+    if counts["digc_topk"] != want or counts["mrconv"] != want:
+        raise AssertionError(f"launches {fired(counts)}, expected {want} of each")
+    check_bucket_forwards(params, cfg, "cuda", batches)
+    batch = to_dev(np.stack(images[:8]))
+    capture: list = []
+    with torch.inference_mode():
+        out = vig.vig_forward(params, batch, cfg, digc_impl="cuda",
+                              digc_capture=capture)
+        ref = vig.vig_forward(params, batch, cfg, digc_impl="blocked")
+        geo = [(d, k) for p in vig.vig_stage_plans(cfg, "cuda")
+               for d, k in zip(p.dilations, p.k_effs)]
+        equal_rows, rows, swaps = 0, 0, []
+        for (_, h, cond), (dil, k) in zip(capture, geo):
+            y = h if cond is None else cond
+            dist, idx = digc_topk_cuda(h, y, k * dil)
+            dist, idx = dist[..., ::dil], idx[..., ::dil]
+            b_idx, b_dist = digc_blocked(h, y, k=k, dilation=dil, return_dists=True)
+            scale = float(h.square().sum(-1).max() + y.square().sum(-1).max())
+            testing.assert_topk_match(idx.cpu().numpy(), dist.cpu().numpy(),
+                                      b_idx.cpu().numpy(), b_dist.cpu().numpy(),
+                                      rtol=RTOL, atol=ATOL + RTOL * scale)
+            equal_rows += int((idx == b_idx).all(-1).sum())
+            rows += idx.shape[0] * idx.shape[1]
+            swaps.append(int((idx != b_idx).sum()))
+    gap = float((out - ref).abs().max())
+    print(f"served the trained weights through VigServeEngine(digc_impl='cuda'): "
+          f"{len(reqs)} requests, {fired(counts)} launches over "
+          f"{len(trace_ticks())} ticks, every request's logits bit for bit the eager "
+          f"cuda forward of its bucket batch; per layer the kernel's neighbour lists "
+          f"equal the blocked tier's except at fp32 near-ties: {equal_rows} of "
+          f"{rows} lists equal ({100 * equal_rows / rows:.2f}%), near-tie swaps per "
+          f"layer {swaps}; logits against the blocked forward: max |diff| {gap:.3g} "
+          f"(largest logit {float(ref.abs().max()):.3g}; not held to a bound)")
+
+
+def training() -> None:
+    t_phase = time.perf_counter()
+    phase("26. training on the card: olmo-1b, whisper-tiny, mamba2-370m and "
+          "vig_ti_iso at full width")
+    olmo_training()
+    cfg_w = lm_configs.get_config("whisper-tiny")
+    frames, _ = whisper_inputs(cfg_w, 8, WHISPER["frames"], 12)
+    rng = np.random.default_rng(12)
+    one_full_step("whisper-tiny", {
+        "frames": to_dev(frames),
+        "tokens": to_dev(rng.integers(0, cfg_w.vocab_size, (8, 128)).astype(np.int32)),
+        "labels": to_dev(rng.integers(0, cfg_w.vocab_size, (8, 128)).astype(np.int32)),
+        "mask": torch.ones(8, 128, device=DEV)})
+    cfg_m = lm_configs.get_config("mamba2-370m")
+    one_full_step("mamba2-370m", lm_train.to_device(
+        synth_lm_batch(DataConfig(128, 8, cfg_m.vocab_size), 0), DEV))
+    print("one fp32 train step at SMOKE width and 2 layers, card against CPU:")
+    families_card_equals_cpu()
+    vig_training()
+    print(f"phase 26 wall time: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -3258,6 +3911,8 @@ def main() -> None:
     lm_serving()
     moe_serving()
     recurrent_serving()
+    encdec_serving()
+    training()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

@@ -5,6 +5,12 @@ builder, with MRConv as its fused aggregation.
 Dispatch is by the device of the tensors passed in: CUDA tensors launch
 the kernel (or raise), CPU tensors take the plain PyTorch version. There
 is no fallback from one to the other.
+
+Neither kernel has a backward. DIGC returns integer indices, through
+which no gradient flows, so it needs no guard. MRConv's output carries
+the gradient of the Grapher's aggregation: on CUDA tensors under grad it
+raises (``mrconv``), as JAX's ``pallas`` aggregate cannot be
+differentiated, rather than return a tensor that silently drops it.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain
 def mrconv(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Fused max-relative aggregation.
     x: (B, N, D) | (N, D), y: (B, M, D) | (M, D), idx: (B, N, k) | (N, k)
-    int32 -> aggregate of x's rank, in x's dtype (computed in fp32)."""
+    int32 -> aggregate of x's rank, in x's dtype (computed in fp32).
+    Raises ``NotImplementedError`` on CUDA tensors when grad mode is on and
+    x or y requires grad: the kernel has no backward."""
     if not (x.ndim == y.ndim == idx.ndim) or x.ndim not in (2, 3):
         raise ValueError(
             "mrconv expects (N, D)/(M, D)/(N, k) or uniformly batched "
@@ -36,7 +44,15 @@ def mrconv(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     squeeze = x.ndim == 2
     if squeeze:
         x, y, idx = x[None], y[None], idx[None]
-    fn = mrconv_cuda if runs_kernel(x) else mrconv_plain
+    kernel = runs_kernel(x)
+    if kernel and torch.is_grad_enabled() and (x.requires_grad
+                                                or y.requires_grad):
+        raise NotImplementedError(
+            "the MRConv kernel has no backward: the 'cuda' tier cannot "
+            "train (as JAX's 'pallas' cannot); train through a tier whose "
+            "aggregate is plain PyTorch: 'reference', 'blocked', 'cluster' "
+            "or 'axial' (ROADMAP queue 3, item 20)")
+    fn = mrconv_cuda if kernel else mrconv_plain
     out = fn(x, y, idx).to(x.dtype)
     return out[0] if squeeze else out
 

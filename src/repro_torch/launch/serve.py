@@ -42,6 +42,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "audio":
+        raise SystemExit("whisper serving needs frames; see tests/test_archs.py")
     api = get_api(cfg)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

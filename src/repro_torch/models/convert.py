@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.state import FIELDS, DigcState, DigcStateEntry
 from repro_torch.device import resolve_device
-from repro_torch.models import module, transformer
+from repro_torch.models import encdec, module, transformer
 from repro_torch.models.module import ParamSpec
 
 
@@ -115,13 +115,22 @@ def params_to_numpy(params: Mapping) -> dict:
     })
 
 
+def lm_param_spec(cfg) -> dict:
+    """The LM family's parameter spec: ``encdec.encdec_param_spec`` for
+    the encoder-decoder (family ``audio``), else
+    ``transformer.param_spec``."""
+    if cfg.family == "audio":
+        return encdec.encdec_param_spec(cfg)
+    return transformer.param_spec(cfg)
+
+
 def lm_params_from_numpy(cfg, tree: Mapping, *, device="cuda") -> dict:
     """A JAX LM parameter tree as numpy arrays (``jax.tree.map(np.asarray,
-    init_params(tr.param_spec(cfg), key))``) -> the port's tree (fp32
+    init_params(api.param_spec(), key))``) -> the port's tree (fp32
     tensors on ``device``, empty sub-dicts kept). Raises unless the tree
-    has exactly ``transformer.param_spec(cfg)``'s paths and shapes."""
+    has exactly ``lm_param_spec(cfg)``'s paths and shapes."""
     dev = resolve_device(device)
-    want = module.leaves(transformer.param_spec(cfg))
+    want = module.leaves(lm_param_spec(cfg))
     got = module.leaves(tree)
     if set(got) != set(want):
         raise ValueError(
@@ -137,7 +146,7 @@ def lm_params_from_numpy(cfg, tree: Mapping, *, device="cuda") -> dict:
                              f"expected {s.shape}")
         return torch.from_numpy(arr.copy()).to(dev)
 
-    return module.map_tree(one, transformer.param_spec(cfg))
+    return module.map_tree(one, lm_param_spec(cfg))
 
 
 def lm_params_to_numpy(params: Mapping) -> dict:

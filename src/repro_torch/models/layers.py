@@ -1,8 +1,8 @@
 """Layer library of the decoder LM (port of ``repro/models/layers.py``):
-norms, rotary embeddings (standard and M-RoPE), embedding, MLPs, and
-grouped-query attention (full, local, KNN). Pure functions over param
-dicts from ``module.ParamSpec``; the MLA layer is ``models/mla.py``,
-sinusoidal positions wait for their family.
+norms, rotary embeddings (standard and M-RoPE), sinusoidal positions,
+embedding, MLPs, and grouped-query attention (full, local, KNN, and the
+encoder-decoder's cross attention). Pure functions over param dicts from
+``module.ParamSpec``; the MLA layer is ``models/mla.py``.
 
 Weights are cast to the config's compute dtype at each use, as JAX casts
 them; a tree already in that dtype (``transformer.compute_params``) makes
@@ -93,6 +93,14 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (S, D), fp32."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +233,10 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Grouped-query form: KV heads are never repeated; the einsum carries
     the (kv_head, group) split. ``q_offset``: absolute position of q[0]
     relative to k[0]. ``kv_len``: valid key prefix (masks the cache
-    tail). The chunk halves from ``q_chunk`` until it divides Sq.
+    tail). Chunks hold ``q_chunk`` rows and the last one the rest, where
+    JAX halves the chunk until it divides Sq (a row's result does not
+    depend on its chunk): at whisper's 1500 encoder frames JAX's rule
+    gives 375 chunks of 4 rows a layer (ROADMAP queue 3, item 21).
     """
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -233,15 +244,14 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dv = v.shape[-1]
     scale = dh**-0.5
     qc = min(q_chunk, sq)
-    while sq % qc:
-        qc //= 2
     kpos = torch.arange(skv, device=q.device)
     outs = []
     for start in range(0, sq, qc):
-        qg = q[:, start:start + qc].reshape(b, qc, kvh, g, dh)
+        n = min(qc, sq - start)
+        qg = q[:, start:start + n].reshape(b, n, kvh, g, dh)
         logits = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() * scale
-        qpos = q_offset + start + torch.arange(qc, device=q.device)
-        mask = torch.ones((qc, skv), dtype=torch.bool, device=q.device)
+        qpos = q_offset + start + torch.arange(n, device=q.device)
+        mask = torch.ones((n, skv), dtype=torch.bool, device=q.device)
         if causal:
             mask &= kpos[None, :] <= qpos[:, None]
         if window > 0:
@@ -251,7 +261,7 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = torch.where(mask, logits, NEG_INF)
         w = torch.softmax(logits, dim=-1).to(q.dtype)
         out = torch.einsum("bkgqt,btkd->bqkgd", w, v)
-        outs.append(out.reshape(b, qc, h, dv))
+        outs.append(out.reshape(b, n, h, dv))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
@@ -289,7 +299,7 @@ def _is_vector(pos) -> bool:
 
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
                     cache: Optional[dict] = None, pos=None, rows=None,
-                    causal: bool = True):
+                    memory: Optional[tuple] = None, causal: bool = True):
     """Full / local attention forward.
 
     prefill: cache=None -> (out, (k, v)) so callers may build caches.
@@ -298,9 +308,19 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     (``pos % T`` for local attention's rolling buffer) into ``cache`` in
     place, for the rows ``rows`` names (all when None), and attends up to
     its own position -> (out, cache).
+    memory: (mk, mv) (B,S_enc,KVH,dh) for cross attention: q from x with
+    its bias, the given keys and values, no RoPE -> (out, None).
     """
     dt = cfg.compute_dtype
     window = cfg.window if cfg.attention == "local" else 0
+
+    if memory is not None:
+        q = _proj_heads(x, params["wq"], dt)
+        if cfg.qkv_bias:
+            q = q + params["bq"].to(dt)
+        k, v = memory
+        out = mha_chunked(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+        return _out_proj(out, params["wo"], dt), None
 
     if cache is None:
         q, k, v = _qkv(params, x, cfg, positions)

@@ -86,12 +86,16 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     c_c = cmat.reshape(bsz, nc, q, n)
     cum = torch.cumsum(la.reshape(bsz, nc, q, h), dim=2)  # (B,nc,q,H)
 
-    # intra-chunk: L[i,j] = exp(cum_i - cum_j) for i >= j; exp overflows to
-    # inf above the diagonal, which the select (not a product) drops
+    # intra-chunk: L[i,j] = exp(cum_i - cum_j) for i >= j, 0 above the
+    # diagonal. The select comes before the exp (exp(-inf) = 0): JAX's
+    # selects after it, where cum_i - cum_j overflows exp to inf, and its
+    # backward then multiplies inf by the select's zero gradient into NaN
+    # grads (ROADMAP queue 3, item 23). The values are the same.
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,i,j,H)
     mask = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
-    lmat = torch.where(mask[None, None, :, :, None], torch.exp(li),
-                       torch.zeros((), dtype=li.dtype, device=li.device))
+    lmat = torch.exp(torch.where(mask[None, None, :, :, None], li,
+                                 torch.full((), -torch.inf, dtype=li.dtype,
+                                            device=li.device)))
     cb = torch.einsum("bcin,bcjn->bcij", c_c, b_c)
     y_diag = torch.einsum("bcij,bcijh,bcjhp->bcihp", cb, lmat, xd_c)
 

@@ -9,8 +9,9 @@ Parameters keep JAX's stacked layout: every per-layer leaf carries a
 leading ``layers`` dimension (the hybrid: ``groups``, stacked over the
 groups with keys ``l{i}_{kind}``, then the unstacked remainder ``rem``
 of ``l{i}_rec`` layers), so converting a JAX tree is one-to-one; a Python
-loop walks it where JAX scans. The encoder-decoder raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+loop walks it where JAX scans. The encoder-decoder (family ``audio``) is
+``models/encdec.py``. ``loss_fn`` is the training loss; under autograd
+each layer body follows the config's remat policy (``_remat``).
 
 Decode cache, with the parameters' leading dims: ``{"k", "v"}`` of
 (layers, B, T, KVH, dh) in the compute dtype (T = ``min(window,
@@ -33,6 +34,11 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -54,30 +60,21 @@ from repro_torch.models.module import ParamSpec, map_tree
 from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.models.ssm import ssm_apply, ssm_init_state, ssm_spec
 
-# ROADMAP queue 1 items that port the families this module refuses.
-_UNPORTED = (
-    (lambda c: c.family in ("audio", "encdec"),
-     "the encoder-decoder (models/encdec.py)", "7e"),
-)
-# Leaves JAX uses in fp32, never cast: norm scales and biases; the MoE
-# router, which multiplies fp32 tokens; MLA's latent norm; the SSM's
-# decay, step bias, skip and gated-norm scale (``norm``, a leaf only
-# there: the layer norms are ``ln1`` / ``ln2`` / ``final_norm``); the
-# RG-LRU's fp32 gates.
-_FP32_KEYS = {"ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm",
+# Leaves JAX uses in fp32, never cast: norm scales and biases (the
+# encoder-decoder's ``ln3`` and ``enc_norm`` too); the MoE router, which
+# multiplies fp32 tokens; MLA's latent norm; the SSM's decay, step bias,
+# skip and gated-norm scale (``norm``, a leaf only there: the layer norms
+# are ``ln1`` / ``ln2`` / ``final_norm``); the RG-LRU's fp32 gates.
+_FP32_KEYS = {"ln1", "ln2", "ln3", "enc_norm", "final_norm", "q_norm",
+              "k_norm", "kv_norm",
               "router", "a_log", "dt_bias", "d_skip", "norm",
               "w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate",
               "lam"}
-_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config this port cannot run."""
-    for hit, what, item in _UNPORTED:
-        if hit(cfg):
-            raise NotImplementedError(
-                f"{cfg.name!r}: {what} is not ported yet (ROADMAP queue 1, "
-                f"item {item}); the port runs families {_FAMILIES}")
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name!r}: family {cfg.family!r} is not ported; the port "
@@ -255,6 +252,35 @@ def _block(lp, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
     return x + mlp_out, cache_entry, metrics
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    matrix products without batch dimensions (``x @ W`` lowers to
+    ``aten.mm``), recompute the rest, as JAX's
+    ``dots_with_no_batch_dims_saveable`` (the attention's batched einsums
+    lower to ``aten.bmm`` and are recomputed)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """A layer body under the config's remat policy, as JAX's ``_remat``:
+    ``"none"`` keeps every activation; ``"full"`` keeps the body's inputs
+    and recomputes the rest in the backward; ``"dots"`` keeps the matrix
+    products' outputs too (``_save_products``). Applied only while
+    autograd records: a forward without grad runs ``fn`` as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_products)
+    return lambda *args, **kwargs: checkpoint(fn, *args, use_reentrant=False,
+                                              **kw, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 
@@ -298,9 +324,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, positions=None,
     root, layers = _stack_root(params, cfg), _layers(cfg)
     entries, auxs, drops = [], [], []
     zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    block = _remat(_block, cfg)
     for kind, keys, index in layers:
-        x, entry, metrics = _block(_select(root, keys, index), x, cfg, kind,
-                                   positions=positions)
+        x, entry, metrics = block(_select(root, keys, index), x, cfg, kind,
+                                  positions=positions)
         if return_cache:
             entries.append(entry)
         auxs.append(metrics.get("moe_aux", zero))
@@ -312,6 +339,36 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, positions=None,
     if return_cache:
         return logits, _gather_caches(cfg, layers, entries), metrics
     return logits, metrics
+
+
+# ---------------------------------------------------------------------------
+# Loss
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross entropy: the fp32 logsumexp minus the gold logit
+    (a gather, where JAX sums an iota match; the same value)."""
+    lf = logits.float()
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - gold
+
+
+def masked_nll(logits: torch.Tensor, batch: Mapping) -> torch.Tensor:
+    """The mean of ``softmax_xent`` against ``batch["labels"]`` over the
+    tokens ``batch["mask"]`` keeps (all when absent)."""
+    nll = softmax_xent(logits, batch["labels"])
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(params, batch: Mapping, cfg: ModelConfig):
+    """batch: tokens (B,S), labels (B,S), mask (B,S) [positions] ->
+    (masked mean NLL + 0.01 x ``moe_aux``, metrics)."""
+    logits, metrics = forward(params, batch["tokens"], cfg,
+                              positions=batch.get("positions"))
+    return masked_nll(logits, batch) + 0.01 * metrics["moe_aux"], metrics
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,8 @@ entry, so block l + 1 warm-starts from block l (or, under a ``reuse``
 policy, serves its graph). The forward serves any square grid that
 ``vig_stage_plans`` accepts (the positional embedding is resampled as
 ``jax.image.resize`` does, ``_pos_for_grid``), and ``valid_mask`` keeps
-zero-padded pad nodes out of every top-k and the mean pooling. Not
-ported: the eager cache.
+zero-padded pad nodes out of every top-k and the mean pooling.
+``vig_loss_fn`` is the training loss. Not ported: the eager cache.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from repro_torch.core.graph import mr_aggregate
 from repro_torch.core.state import DigcState, state_entry
 from repro_torch.core.strategies import default_cluster_params
 from repro_torch.core.tuner import VigSchedule
+from repro_torch.models.transformer import softmax_xent
 from repro_torch.device import resolve_device
 from repro_torch.models.convert import flatten, init_params, unflatten, vig_param_spec  # noqa: F401
 
@@ -364,12 +365,15 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     # The overlap policy's refresh build runs beside MRConv and the FFN,
     # joined before the block returns its state.
     refresh = RefreshFork() if state is not None else None
-    if state is not None:
-        idx, state = digc(h, cond, spec=dspec, state=state,
-                          state_key=layer_key, reuse_first=reuse_first,
-                          refresh=refresh, m_valid=m_valid)
-    else:
-        idx = digc(h, cond, spec=dspec, m_valid=m_valid)  # (B, N, k) int32
+    # The build returns integer indices: no gradient flows through it, so
+    # autograd holds none of the tier's distance tiles.
+    with torch.no_grad():
+        if state is not None:
+            idx, state = digc(h, cond, spec=dspec, state=state,
+                              state_key=layer_key, reuse_first=reuse_first,
+                              refresh=refresh, m_valid=m_valid)
+        else:
+            idx = digc(h, cond, spec=dspec, m_valid=m_valid)  # (B, N, k) int32
     aggregate = builder.aggregate if builder.aggregate is not None else mr_aggregate
     agg = aggregate(h, cond if cond is not None else h, idx)
     h = torch.cat([h, agg], dim=-1) @ bp["fc_graph"]
@@ -501,6 +505,15 @@ def init_vig_state(cfg: VigConfig, batch: int,
         entries[plan.key] = state_entry(centroids_shape=cents, rows=rows,
                                         graph_shape=graph, device=device)
     return DigcState.init(entries)
+
+
+def vig_loss_fn(params: dict, batch, cfg: VigConfig):
+    """Mean softmax cross entropy of ``vig_forward``'s fp32 logits against
+    ``batch["labels"]`` -> (loss, {}). Training drives the functional
+    forward with a parameter dict that requires grad (``Vig`` is
+    inference-only)."""
+    logits = vig_forward(params, batch["images"], cfg)
+    return softmax_xent(logits, batch["labels"]).mean(), {}
 
 
 def count_digc_work(cfg: VigConfig, *, grid: Optional[int] = None) -> list:

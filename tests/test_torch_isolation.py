@@ -44,7 +44,11 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "repro_torch.kernels.ops" in out["modules"]
     for name in ("repro_torch.serve.engine", "repro_torch.models.transformer",
                  "repro_torch.launch.serve", "repro_torch.configs",
-                 "repro_torch.configs.olmo_1b"):
+                 "repro_torch.configs.olmo_1b", "repro_torch.models.encdec",
+                 "repro_torch.launch.train", "repro_torch.launch.train_vig",
+                 "repro_torch.train.trainer", "repro_torch.ckpt.checkpoint",
+                 "repro_torch.data.pipeline",
+                 "repro_torch.distributed.straggler"):
         assert name in out["modules"]
     assert out["bad"] == []
 
@@ -89,3 +93,21 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                           cwd=tmp_path, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_training_and_encdec_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.launch import api, train, train_vig
+    from repro_torch.models import encdec
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vig.main(["--steps", "1"])
+    cfg = get_smoke("whisper-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encdec.encdec_init_cache(cfg, 1, 4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.get_api(cfg).init_cache(1, 4)
+    assert api.get_api(cfg).init_cache(1, 4, device="cpu")["mk"].shape[2] == 64

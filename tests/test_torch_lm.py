@@ -38,6 +38,9 @@ from repro_torch.models import transformer as tr  # noqa: E402
 MOE = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
 PORTED = ["olmo-1b", "qwen1.5-4b", "qwen3-32b", "granite-34b", "qwen2-vl-72b",
           *MOE]
+# Families once refused with the ROADMAP item that ports them. The
+# encoder-decoder (item 7e) is ported (``models/encdec.py``); the LM
+# serving and training drivers refuse it with JAX's ``SystemExit``.
 UNPORTED = {"whisper-tiny": "7e"}
 # The recurrent families: SSM, the Griffin hybrid, and the hybrid with a
 # remainder (one group and two ``rem`` layers).
@@ -331,16 +334,27 @@ def test_batch_independence(arch):
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_unported_families_raise_naming_their_item(arch):
+    """Since item 7e the family is ported: ``get_api`` gives the
+    encoder-decoder's spec and loss, and only the drivers that cannot take
+    it refuse it, with the JAX package's messages."""
+    from repro.launch import serve as jserve
+    from repro.launch import train as jtrain
+    from repro_torch.launch import serve, train
+    from repro_torch.models import encdec
+
     cfg = configs.get_smoke(arch)
-    item = f"ROADMAP queue 1, item {UNPORTED[arch]}"
-    calls = [lambda: tr.param_spec(cfg), lambda: get_api(cfg),
-             lambda: tr.init_cache(cfg, 1, 4, device="cpu"),
-             lambda: tr.forward({}, torch.zeros(1, 4, dtype=torch.int32), cfg),
-             lambda: tr.decode_step({}, {}, torch.zeros(1, 1, dtype=torch.int32),
-                                    0, cfg)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    tr.check_ported(cfg)
+    a = get_api(cfg)
+    assert a.loss_fn is encdec.encdec_loss_fn
+    assert "enc" in a.param_spec() and "dec_pos" in a.param_spec()
+    for mine, theirs in ((serve.main, jserve.main), (train.main, jtrain.main)):
+        with pytest.raises(SystemExit) as jexc:
+            theirs(["--arch", arch, "--smoke"])
+        with pytest.raises(SystemExit) as exc:
+            mine(["--arch", arch, "--smoke", "--device", "cpu"])
+        assert str(exc.value) == str(jexc.value)
+    with pytest.raises(NotImplementedError, match="family 'encdec'"):
+        tr.check_ported(cfg.replace(family="encdec"))
 
 
 def test_init_params_kinds_scales_and_stacking():
