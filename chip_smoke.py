@@ -240,13 +240,34 @@ Phases, each printed as it runs; any failure exits non-zero:
     the ``blocked`` tier's on the recorded features (equal but at fp32
     near-ties; the fraction printed) and the logit gap to the ``blocked``
     forward printed.
+27. ring and mesh (plain PyTorch, no kernel of its own: JAX's ring hop is
+    an einsum and ``merge_topk``), on a one-rank NCCL mesh
+    (``make_mesh((1,), ("data",))``): (a) ``ring_digc`` at every main-path
+    DIGC shape of ``vig_ti_iso`` (B = 8, N = M = 196, D = 192, each kd)
+    against the ``cuda`` tier (equal but at near-ties), stateless, a placed
+    frozen-gallery entry cold and warm (bit for bit the stateless call), a
+    poisoned warm norm pushing its co-node out while a cold row ignores it,
+    and the device time beside the ``cuda`` tier's; (b) full-width
+    ``vig_ti_iso`` through ``VigServeEngine(digc_impl="ring", mesh=mesh)``
+    on phase 4's trace, captured: every request's logits bit for bit an
+    eager forward of its bucket batch, ``stats()["mesh"] == {"data": 1}``,
+    no kernel launched; requests/s and the bucket-8 tick in turns beside
+    the ``cuda`` and ``blocked`` engines, and a profiled bucket-8 tick;
+    (c) with two cards or more, (a) over NCCL with one rank per card (up
+    to 4), else a line saying it was skipped. Then on the CPU, with 4 gloo
+    ranks (``testing.run_ranks``): ``ring_digc`` at the same shapes, indices
+    bit for bit the one-rank result; the engine at full width on a (2, 2)
+    ("ring", "data") mesh with buckets (2, 3) (bucket 3 pads its tick to
+    4), every request's logits bit for bit the unsharded ``blocked``
+    engine's where every layer's lists are equal, the rest within 1e-3 of
+    the largest logit. The CPU part's times are the CPU's wall clock.
 
 Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
 tier, which must launch none; so do phase 21's cluster engines, the LM
-phases 22, 23 and 24, and phases 25 and 26's runs but the served trained
-weights, which must launch both kernels). A
+phases 22, 23 and 24, phases 25 and 26's runs but the served trained
+weights, which must launch both kernels, and phase 27's ring engine). A
 replayed graph adds the launches its capture recorded. Every engine
 outside phases 17 and 21 (c) must end with
 ``fallback_level`` 0 and no logged fault. The line before the last is the kernel summary
@@ -302,6 +323,9 @@ from repro_torch.launch.api import get_api  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.train import optimizer  # noqa: E402
 from repro_torch.train.trainer import init_train_state, make_train_step, value_and_grad  # noqa: E402
+from repro_torch.core.ring import ring_digc  # noqa: E402
+from repro_torch.core.state import DigcState, state_entry  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32
 # and bf16 on the tensor cores, HBM3 rate.
@@ -3884,6 +3908,322 @@ def training() -> None:
     print(f"phase 26 wall time: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: ring and mesh
+
+
+RING_SEED = 2700
+# The engine trace of the CPU part: tick sizes 3, 2, 3, 1 on buckets
+# (2, 3) serve buckets 3, 2, 3, 2; bucket 3 pads to the (2, 2) mesh's
+# batch axis (width 4).
+MESH_WAVES = [["A", "B", "C"], ["A", "D"], ["B", "C", "E"], ["A"]]
+
+# One group of gloo ranks on the CPU: the ring at the full-width shapes
+# and, on 4 ranks, the mesh engine at full width against the unsharded
+# blocked engine. Rank 0 writes ``out.npz`` under the given directory.
+RING_RANKS = """
+import json, os, time
+import numpy as np, torch
+from repro_torch import testing
+from repro_torch.core import DigcSpec, digc
+from repro_torch.core.ring import ring_digc
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import convert, vig
+from repro_torch.serve.engine import VigRequest, VigServeEngine
+shapes = {shapes!r}
+out = {{}}
+t0 = time.perf_counter()
+world = int(os.environ["WORLD_SIZE"])
+mesh = make_mesh((world,), ("data",), device="cpu")
+for i, (n, m, d, kd) in enumerate(shapes):
+    x = torch.from_numpy(testing.features({seed} + i, 8, n, d))
+    y = torch.from_numpy(testing.features({seed} + 100 + i, 8, m, d))
+    out[f"ring{{i}}"] = ring_digc(x, y, k=kd, mesh=mesh).numpy()
+out["ring_s"] = time.perf_counter() - t0
+if world == 4:
+    t0 = time.perf_counter()
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device="cpu")
+    mesh2 = make_mesh((2, 2), ("ring", "data"), device="cpu")
+    engines = {{
+        "ring": VigServeEngine(cfg, params, digc_impl="ring", buckets=(2, 3),
+                               mesh=mesh2, mesh_axis="ring",
+                               mesh_batch_axis="data", device="cpu"),
+        "blocked": VigServeEngine(cfg, params, digc_impl="blocked",
+                                  autotune=False, buckets=(2, 3),
+                                  device="cpu")}}
+    widths = []
+    for name, eng in engines.items():
+        uid = 0
+        for wave in {waves!r}:
+            reqs = []
+            for t in wave:
+                r = VigRequest(uid=uid, image=testing.images(
+                    {seed} + 500 + uid, 1, cfg.image_size)[0], tenant=t)
+                uid += 1
+                reqs.append(r)
+                eng.submit(r)
+            assert eng.step() == len(wave)
+            if name == "ring":
+                widths.append((eng.last_bucket, eng._tick_width(eng.last_bucket)))
+            out[f"{{name}}_logits"] = np.concatenate(
+                [out.get(f"{{name}}_logits", np.zeros((0, cfg.num_classes),
+                                                      np.float32)),
+                 np.stack([r.logits for r in reqs])])
+        assert eng.fallback_level == 0 and not eng.fault_log
+    out["widths"] = np.array(widths)
+    out["mesh"] = np.array(json.dumps(engines["ring"].stats()["mesh"]))
+    # per request: are its lists equal in every layer? Its B = 1 forward
+    # on each tier, each layer's lists from that forward's own features.
+    spec = engines["ring"].spec.replace(batch_axis=None)  # B = 1 forwards
+    blocked = DigcSpec(impl="blocked")
+    same = []
+    uid = 0
+    for wave in {waves!r}:
+        for _ in wave:
+            im = torch.from_numpy(testing.images({seed} + 500 + uid, 1,
+                                                 cfg.image_size))
+            uid += 1
+            lists = {{}}
+            for tier, choice in (("ring", spec), ("blocked", blocked)):
+                cap = []
+                vig.vig_forward(params, im, cfg, digc_impl=choice,
+                                digc_capture=cap)
+                geo = [(dl, k) for p in vig.vig_stage_plans(cfg, choice)
+                       for dl, k in zip(p.dilations, p.k_effs)]
+                lists[tier] = [digc(h, c, spec=choice.replace(k=k, dilation=dl))
+                               for (_, h, c), (dl, k) in zip(cap, geo)]
+            same.append(all(torch.equal(a, b) for a, b in
+                            zip(lists["ring"], lists["blocked"])))
+    out["lists_equal"] = np.array(same)
+    out["engine_s"] = time.perf_counter() - t0
+if torch.distributed.get_rank() == 0:
+    np.savez({outdir!r} + f"/ring{{world}}.npz", **out)
+print("RANK_OK")
+"""
+
+# Phase 27 (c): the ring over NCCL, one rank per card. Rank 0 prints.
+RING_CARDS = """
+import numpy as np, torch
+from repro_torch import testing
+from repro_torch.core.ring import ring_digc
+from repro_torch.kernels.digc_topk import digc_topk_cuda
+from repro_torch.launch.mesh import make_mesh
+mesh = make_mesh(({world},), ("data",), device="cuda")
+dev = mesh.device
+for i, (n, m, d, kd) in enumerate({shapes!r}):
+    x = torch.from_numpy(testing.features({seed} + i, 8, n, d)).to(dev)
+    y = torch.from_numpy(testing.features({seed} + 100 + i, 8, m, d)).to(dev)
+    idx, dist = ring_digc(x, y, k=kd, mesh=mesh, return_dists=True)
+    ref_d, ref_i = digc_topk_cuda(x, y, kd)
+    scale = float(x.square().sum(-1).max() + y.square().sum(-1).max())
+    why = testing.topk_mismatch(idx.cpu().numpy(), dist.cpu().numpy(),
+                                ref_i.cpu().numpy(), ref_d.cpu().numpy(),
+                                rtol={rtol}, atol={atol} + {rtol} * scale,
+                                exact_rows=True)
+    assert why is None, why
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        ring_digc(x, y, k=kd, mesh=mesh)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(20):
+        ring_digc(x, y, k=kd, mesh=mesh)
+    end.record()
+    torch.cuda.synchronize()
+    if torch.distributed.get_rank() == 0:
+        print(f"{{mesh.size}} cards, N=M={{n}} D={{d}} kd={{kd}}: equal to the "
+              f"cuda tier but near-ties; {{start.elapsed_time(end) / 20:.4f}} "
+              "ms a call (CUDA events, host-paced calls)")
+print("RANK_OK")
+"""
+
+
+def ring_shapes() -> list:
+    """(N, M, D, kd) of every DIGC call on vig_ti_iso's main path."""
+    return sorted(main_path_shapes("vig_ti_iso")[0])
+
+
+def ring_vs_cuda(mesh) -> None:
+    """(a): ``ring_digc`` on a one-rank mesh at every main-path shape
+    (B = 8): against the cuda tier, stateless, cold, warm, the poisoned
+    norm; timed beside the cuda tier."""
+    for i, (n, m, d, kd) in enumerate(ring_shapes()):
+        x = to_dev(testing.features(RING_SEED + i, 8, n, d))
+        y = to_dev(testing.features(RING_SEED + 100 + i, 8, m, d))
+        idx, dist = ring_digc(x, y, k=kd, mesh=mesh, return_dists=True)
+        ref_d, ref_i = digc_topk_cuda(x, y, kd)
+        scale = float(x.square().sum(-1).max() + y.square().sum(-1).max())
+        why = testing.topk_mismatch(idx.cpu().numpy(), dist.cpu().numpy(),
+                                    ref_i.cpu().numpy(), ref_d.cpu().numpy(),
+                                    rtol=RTOL, atol=ATOL + RTOL * scale,
+                                    exact_rows=True)
+        if why is not None:
+            raise AssertionError(f"ring against the cuda tier at kd={kd}: {why}")
+        swaps = int((idx != ref_i).sum())
+        spec = DigcSpec(impl="ring", k=kd, mesh=mesh)
+        st = DigcState.init({"g": state_entry(sq_y_shape=(8, m), rows=8,
+                                              mesh=mesh, device=DEV)})
+        i_c, d_c, st1 = digc(x, y, spec=spec, state=st, state_key="g",
+                             return_dists=True)
+        i_w, d_w, st2 = digc(x, y, spec=spec, state=st1, state_key="g",
+                             return_dists=True)
+        if not (torch.equal(i_c, idx) and torch.equal(i_w, idx)
+                and torch.equal(d_c, dist) and torch.equal(d_w, dist)):
+            raise AssertionError(f"kd={kd}: a cold or warm entry changed the lists")
+        if st2.steps() != {"g": 2} or st2.entries["g"].sq_y_placement is None:
+            raise AssertionError(f"kd={kd}: state {st2.steps()}, placement "
+                                 f"{st2.entries['g'].sq_y_placement}")
+        entry = st1.entries["g"]
+        victim = int(i_c[0, 0, 0])
+        sq = entry.sq_y.clone()
+        sq[:, victim] += 1e9
+        poisoned = dataclasses.replace(entry, sq_y=sq)
+        i_p = digc(x, y, spec=spec, state=st1.set("g", poisoned), state_key="g")[0]
+        cold = dataclasses.replace(poisoned, row_step=torch.zeros_like(entry.row_step))
+        i_0 = digc(x, y, spec=spec, state=st1.set("g", cold), state_key="g")[0]
+        if bool((i_p == victim).any()) or not torch.equal(i_0, idx):
+            raise AssertionError(f"kd={kd}: the poisoned norm was not read warm "
+                                 "or was read cold")
+        ring_ms = time_ms(lambda: ring_digc(x, y, k=kd, mesh=mesh))
+        cuda_ms = time_ms(lambda: digc_topk_cuda(x, y, kd))
+        print(f"B=8 N={n} M={m} D={d} kd={kd}: ring = cuda tier but {swaps} "
+              f"near-tie swaps; cold and warm entries bit for bit the stateless "
+              f"call, a poisoned warm norm pushes its co-node out and a cold row "
+              f"ignores it; ring {ring_ms[0]:.4f} ms device ({ring_ms[1]:.4f} "
+              f"ms a host-paced call), cuda tier {cuda_ms[0]:.4f} ms device "
+              f"({cuda_ms[1]:.4f})")
+
+
+def ring_engine(mesh) -> None:
+    """(b): full-width vig_ti_iso through the mesh-native engine on the
+    ring tier, captured, on phase 4's trace; then in turns beside the
+    cuda and blocked engines."""
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEV)
+    images = [testing.images(uid, 1, cfg.image_size)[0] for uid in range(20)]
+    eng = VigServeEngine(cfg, params, digc_impl="ring", mesh=mesh, device=DEV)
+    serve_trace(eng, images)  # warm-up pass: first use of each bucket
+    reset_launch_counts()
+    batches: list = []
+    reqs, _, _ = serve_trace(eng, images, batches)
+    counts = launch_counts()
+    stats = eng.stats()
+    assert_no_faults(eng, "the mesh-native ring engine")
+    if fired(counts):
+        raise AssertionError(f"the ring path launched {fired(counts)}")
+    if stats["mesh"] != {"data": 1}:
+        raise AssertionError(f"stats()['mesh'] = {stats['mesh']}")
+    if stats["compile_count"] != 4 or sorted(eng._captured) != [1, 2, 4, 8]:
+        raise AssertionError(f"{stats['compile_count']} captured programs: "
+                             f"{sorted(eng._captured)}")
+    logits = np.stack([r.logits for r in reqs])
+    if logits.shape != (20, 1000) or not np.isfinite(logits).all():
+        raise AssertionError(f"logits {logits.shape} not finite")
+    check_bucket_forwards(params, cfg, eng.spec, batches)
+    print(f"VigServeEngine(digc_impl='ring', mesh={mesh}): {len(reqs)} requests "
+          f"over {len(batches)} ticks on 4 captured programs, every request's "
+          f"logits bit for bit an eager forward of its bucket batch; launches "
+          f"{fired(counts) or 'none'}; stats()['mesh'] = {stats['mesh']}")
+    others = {"cuda": VigServeEngine(cfg, params, digc_impl="cuda", device=DEV),
+              "blocked": VigServeEngine(cfg, params, digc_impl="blocked",
+                                        autotune=False, device=DEV)}
+    for other in others.values():
+        serve_trace(other, images)
+    engines = {"ring": eng, **others}
+    rps = {k: [] for k in engines}
+    tick8 = {k: [] for k in engines}
+    for _ in range(3):
+        for name, e in engines.items():
+            _, lat, seconds = serve_trace(e, images)
+            rps[name].append(len(images) / seconds)
+            tick8[name] += lat[8]
+    for name in engines:
+        assert_no_faults(engines[name], name)
+        print(f"{name:8s} engine: requests/s {statistics.median(rps[name]):.2f} "
+              f"(median of 3 passes in turns, {['%.2f' % v for v in rps[name]]}); "
+              f"bucket-8 tick median {statistics.median(tick8[name]):.3f} ms "
+              f"over {len(tick8[name])} ticks")
+    profile_tick(eng, images, tag="ring")
+
+
+def ring_on_cards() -> None:
+    """(c): (a) over NCCL, one rank per card, where the machine has more
+    than one."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"27 (c) skipped: {cards} card on this machine; the ring over "
+              "NCCL needs a second card (NCCL takes one rank per card)")
+        return
+    world = min(cards, 4)
+    outs = testing.run_ranks(RING_CARDS.format(
+        world=world, shapes=ring_shapes(), seed=RING_SEED, rtol=RTOL,
+        atol=ATOL), world, timeout=600)
+    print(outs[0].strip())
+
+
+def ring_on_cpu() -> None:
+    """The CPU part: 4 gloo ranks, labelled as the CPU."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fmt = dict(shapes=ring_shapes(), seed=RING_SEED, waves=MESH_WAVES,
+                   outdir=tmp)
+        testing.run_ranks(RING_RANKS.format(**fmt), 1, timeout=300)
+        testing.run_ranks(RING_RANKS.format(**fmt), 4, timeout=900, threads=2)
+        one = dict(np.load(f"{tmp}/ring1.npz"))
+        four = dict(np.load(f"{tmp}/ring4.npz"))
+    for i, shape in enumerate(ring_shapes()):
+        if not np.array_equal(one[f"ring{i}"], four[f"ring{i}"]):
+            raise AssertionError(f"CPU: 4-rank ring differs from 1 rank at {shape}")
+    print(f"CPU, 4 gloo ranks: ring_digc at B=8 and the {len(ring_shapes())} "
+          f"main-path shapes, indices bit for bit the one-rank result "
+          f"({float(four['ring_s']):.1f} s of the CPU's wall clock)")
+    widths = [tuple(int(v) for v in w) for w in four["widths"]]
+    if (3, 4) not in widths or any(w != (b if b % 2 == 0 else b + 1)
+                                   for b, w in widths):
+        raise AssertionError(f"CPU: tick widths {widths}")
+    if json.loads(str(four["mesh"])) != {"ring": 2, "data": 2}:
+        raise AssertionError(f"CPU: stats()['mesh'] {four['mesh']}")
+    ring, blocked, same = (four["ring_logits"], four["blocked_logits"],
+                           four["lists_equal"])
+    bitwise = (ring == blocked).all(-1)
+    if not bitwise[same].all():
+        raise AssertionError(
+            f"CPU: requests {np.nonzero(same & ~bitwise)[0].tolist()} have every "
+            "layer's lists equal but logits that differ from the blocked engine's")
+    tol = 1e-3 * float(np.abs(blocked).max())
+    gap = float(np.abs(ring - blocked).max())
+    if gap > tol:
+        raise AssertionError(f"CPU: logits differ by {gap} > {tol}")
+    print(f"CPU, 4 gloo ranks: the mesh engine on a (2, 2) ('ring', 'data') mesh, "
+          f"buckets (2, 3), tick widths {widths} (bucket 3 padded to 4): "
+          f"{len(ring)} requests, {int(bitwise.sum())} bit for bit the unsharded "
+          f"blocked engine's logits ({int(same.sum())} with every layer's lists "
+          f"equal, all of them bitwise); the rest within {tol:.3g} (1e-3 of the "
+          f"largest logit; largest gap {gap:.3g}); "
+          f"{float(four['engine_s']):.1f} s of the CPU's wall clock")
+    print(f"CPU part: {time.perf_counter() - t0:.1f} s of the CPU's wall clock "
+          "(not a card number)")
+
+
+def ring_and_mesh() -> None:
+    t_phase = time.perf_counter()
+    phase("27. ring and mesh: ring_digc and the mesh-native engine on a "
+          "one-rank NCCL mesh, then 4 gloo ranks on the CPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    mesh = make_mesh((1,), ("data",), device="cuda")
+    print(f"{smi}; {mesh}, backend {torch.distributed.get_backend()}")
+    ring_vs_cuda(mesh)
+    ring_engine(mesh)
+    ring_on_cards()
+    ring_on_cpu()
+    print(f"phase 27 wall time: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -3913,6 +4253,7 @@ def main() -> None:
     recurrent_serving()
     encdec_serving()
     training()
+    ring_and_mesh()
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

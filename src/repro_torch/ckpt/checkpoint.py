@@ -13,9 +13,10 @@ moment). Dtypes are written as numpy names them (``float32``, ``int32``,
 ``bfloat16``); a bfloat16 leaf is read back through an int16 view, so no
 numpy bfloat16 type is needed. A directory is trusted only once it holds
 ``COMMITTED``; ``latest_step`` scans for the newest such step, and
-``_gc`` keeps the last ``keep``. The JAX version's re-sharding onto a
-device mesh is not ported (ROADMAP queue 1, item 6): leaves restore whole
-onto their template's device.
+``_gc`` keeps the last ``keep``. ``restore(shardings=)`` places each
+leaf by its ``models.module.Sharding`` record, whatever the mesh at save
+time (elastic restore): each rank keeps the block that JAX's
+``NamedSharding`` gives its device.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.module import Sharding
+
 SEP = "/"
 _NAMES = {torch.float64: "float64", torch.float32: "float32",
           torch.float16: "float16", torch.bfloat16: "bfloat16",
@@ -37,11 +40,13 @@ _NAMES = {torch.float64: "float64", torch.float32: "float32",
           torch.int8: "int8", torch.uint8: "uint8", torch.bool: "bool"}
 
 
-def _flatten(tree) -> dict[str, Any]:
+def _flatten(tree, leaf=lambda node: False) -> dict[str, Any]:
     flat = {}
 
     def walk(prefix, node):
-        if isinstance(node, dict):
+        if leaf(node):
+            flat[prefix] = node
+        elif isinstance(node, dict):
             for k, v in node.items():
                 walk(f"{prefix}{SEP}{k}" if prefix else str(k), v)
         elif isinstance(node, (tuple, list)):
@@ -159,11 +164,33 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str | Path, tree_like, *, step: Optional[int] = None):
-    """Restore into the structure of ``tree_like`` (tensors): each leaf
-    takes its template's dtype and device. Returns (tree, step). Raises
-    ``KeyError`` for a leaf the checkpoint lacks and ``ValueError`` for a
-    shape that differs from the template's."""
+def shard_of(t: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's block of the global ``t`` under ``sharding`` (a
+    ``(mesh, spec)`` record): dimension i splits into the product of its
+    spec entry's axis sizes, and the rank takes the block its coordinates
+    on those axes name, the first axis major (JAX's ``NamedSharding``)."""
+    mesh, spec = sharding
+    for dim, entry in enumerate(tuple(spec)):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        blocks, block = 1, 0
+        for a in axes:
+            blocks, block = blocks * mesh.shape[a], (
+                block * mesh.shape[a] + mesh.coordinate(a))
+        size = t.shape[dim] // blocks
+        t = t.narrow(dim, block * size, size)
+    return t.contiguous()
+
+
+def restore(ckpt_dir: str | Path, tree_like, *, step: Optional[int] = None,
+            shardings=None):
+    """Restore into the structure of ``tree_like`` (tensors of the global
+    shapes): each leaf takes its template's dtype and device. Returns
+    (tree, step). ``shardings`` (a matching tree of ``Sharding`` records,
+    ``models.module.make_shardings``) makes each leaf this rank's block
+    (``shard_of``). Raises ``KeyError`` for a leaf the checkpoint lacks
+    and ``ValueError`` for a shape that differs from the template's."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -175,6 +202,8 @@ def restore(ckpt_dir: str | Path, tree_like, *, step: Optional[int] = None):
     shards = [np.load(shard) for shard in sorted(src.glob("shard_*.npz"))]
     try:
         where = {k: z for z in shards for k in z.files}
+        flat_sh = ({} if shardings is None else
+                   _flatten(shardings, lambda n: isinstance(n, Sharding)))
         out_flat = {}
         for key, like in _flatten(tree_like).items():
             if key not in where:
@@ -185,6 +214,8 @@ def restore(ckpt_dir: str | Path, tree_like, *, step: Optional[int] = None):
             if tuple(t.shape) != want:
                 raise ValueError(
                     f"shape mismatch for {key}: {tuple(t.shape)} vs {want}")
+            if key in flat_sh and flat_sh[key] is not None:
+                t = shard_of(t, flat_sh[key])
             out_flat[key] = t.to(device=like.device, dtype=like.dtype)
     finally:
         for z in shards:

@@ -71,6 +71,14 @@ class DigcSpec:
     axis_name: Optional[str] = None
     batch_axis: Optional[str] = None
 
+    def mesh_shape(self) -> Optional[tuple[int, ...]]:
+        """Rank counts of the spec's mesh axes (None when unsharded): part
+        of the tuner's workload identity, since a schedule measured on an
+        N-way ring is not a single-device schedule."""
+        if self.mesh is None:
+            return None
+        return tuple(int(s) for s in self.mesh.shape.values())
+
     def replace(self, **kw) -> "DigcSpec":
         return dataclasses.replace(self, **kw)
 
@@ -133,7 +141,8 @@ class GraphBuilder:
     ``state_entry=`` (a ``core.state.DigcStateEntry``) and then return
     ``(idx, dist, new_entry)``; for every other builder ``digc()`` passes
     the state through unchanged. ``exact`` is False for an approximate
-    tier (``cluster``, ``axial``). ``aggregate`` is an optional fused
+    tier (``cluster``, ``axial``). ``distributed`` marks a builder that
+    needs a mesh (``ring``). ``aggregate`` is an optional fused
     neighbour aggregation (x, y, idx) -> (B, N, D); None means
     ``mr_aggregate``.
     """
@@ -146,6 +155,7 @@ class GraphBuilder:
     exact: bool = True
     supports_pad: bool = False
     supports_state: bool = False
+    distributed: bool = False
     aggregate: Optional[Callable] = None
     doc: str = ""
 
@@ -205,6 +215,7 @@ _LAZY: dict[str, str] = {
     "cuda": "repro_torch.kernels.ops",
     "cluster": "repro_torch.core.strategies",
     "axial": "repro_torch.core.strategies",
+    "ring": "repro_torch.core.ring",
 }
 
 

@@ -93,10 +93,12 @@ def select_topkd(d_blk: torch.Tensor, kd: int,
 
 def merge_topk_xla(run_d, run_i, blk_d, blk_i, kd: int):
     """Lowest kd of a running list and a block of candidates, ascending by
-    (distance, index). Every index in ``blk_i`` must exceed every index
-    in ``run_i`` and the block must be in index order wherever distances
-    tie (tiles arrive in column order), so a stable sort by distance is
-    lexicographic."""
+    distance; among equal distances the earlier position in
+    ``[run, blk]`` wins (a stable sort, as ``lax.top_k`` of the negated
+    concatenation). The streaming engine feeds tiles in column order, so
+    there every block index exceeds every running index and the order is
+    (distance, index); the ring feeds shards in hop order, so a tie goes
+    to the shard met first."""
     cand_d = torch.cat([run_d, blk_d], dim=-1)
     cand_i = torch.cat([run_i, blk_i], dim=-1)
     dist, sel = torch.sort(cand_d, dim=-1, stable=True)

@@ -21,6 +21,10 @@ a ``DigcStateEntry`` of tensors:
   * ``graph_idx`` / ``graph_dist`` / ``graph_snap`` / ``graph_age`` --
     the stale-graph buffers: the (B, N, k) graph last built, the (B,)
     feature statistic it was built from and the (B,) age in gated calls.
+  * ``sq_y_placement`` -- set on an entry placed for the ring
+    (``state_entry(mesh=)``): ``sq_y`` then holds only this rank's column
+    shard (B, M / n) of the global (B, M) norms, the one value the port
+    keeps sharded. ``full()`` gathers it back.
 
 Invalidation rules:
 
@@ -72,6 +76,17 @@ def _rows_on(rows, device: torch.device) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class NormPlacement:
+    """Where a placed entry's ``sq_y`` lives: column shard
+    ``mesh.coordinate(axis)`` of ``cols`` co-nodes split evenly over the
+    ``axis`` ranks of ``mesh`` (JAX's ``PartitionSpec(None, axis)``)."""
+
+    mesh: object
+    axis: str
+    cols: int
+
+
+@dataclasses.dataclass(frozen=True)
 class DigcStateEntry:
     """Per-key functional construction state (see the module docstring)."""
 
@@ -83,6 +98,29 @@ class DigcStateEntry:
     graph_dist: Optional[torch.Tensor] = None  # (B, N, k) f32
     graph_snap: Optional[torch.Tensor] = None  # (B,) f32 drift snapshot
     graph_age: Optional[torch.Tensor] = None  # (B,) int32; 0 = just built
+    # Set when sq_y holds this rank's column shard (state_entry(mesh=)).
+    sq_y_placement: Optional["NormPlacement"] = None
+
+    @property
+    def sq_y_shape(self) -> Optional[tuple[int, ...]]:
+        """The global (B, M) shape of ``sq_y`` (None without norms)."""
+        if self.sq_y is None:
+            return None
+        if self.sq_y_placement is None:
+            return tuple(self.sq_y.shape)
+        return (self.sq_y.shape[0], self.sq_y_placement.cols)
+
+    def full(self) -> "DigcStateEntry":
+        """The entry with its norms gathered to the global (B, M) value on
+        every rank (a collective on a placed entry; itself otherwise)."""
+        pl = self.sq_y_placement
+        if pl is None:
+            return self
+        from repro_torch.launch.mesh import all_gather
+
+        return dataclasses.replace(
+            self, sq_y=all_gather(self.sq_y, pl.mesh, pl.axis, 1),
+            sq_y_placement=None)
 
     @property
     def warm(self) -> torch.Tensor:
@@ -106,8 +144,9 @@ class DigcStateEntry:
         return dataclasses.replace(self, step=self.step + 1, **updates)
 
     def map(self, fn) -> "DigcStateEntry":
-        """Apply ``fn`` to every tensor (None fields stay None)."""
-        return DigcStateEntry(**{
+        """Apply ``fn`` to every tensor (None fields stay None; the
+        placement is kept)."""
+        return dataclasses.replace(self, **{
             f: None if getattr(self, f) is None else fn(getattr(self, f))
             for f in FIELDS
         })
@@ -197,6 +236,7 @@ def state_entry(
     dtype: torch.dtype = torch.float32,
     rows: Optional[int] = None,
     mesh=None,
+    axis_name: str = "data",
     device="cuda",
 ) -> DigcStateEntry:
     """A cold entry with zero buffers of the given shapes on ``device``.
@@ -204,21 +244,36 @@ def state_entry(
     The zeros are never read as values: ``step == 0`` (or a zero
     ``row_step``) routes every builder to its cold path. ``rows``
     allocates (rows,) per-row counters for multi-tenant serving;
-    ``graph_shape`` (B, N, k) the stale-graph buffers. ``mesh`` placement
-    is not ported: any mesh raises.
+    ``graph_shape`` (B, N, k) the stale-graph buffers.
+
+    ``mesh`` places the entry for the ring: ``sq_y`` is split along
+    ``axis_name`` on its co-node dimension, each rank holding its (B,
+    M / n) column shard (``sq_y_placement``), while the counters,
+    centroids and cached graphs stay whole on every rank (per-row values
+    every rank reads). A co-node count the axis does not divide keeps
+    ``sq_y`` whole: placement is a performance choice, never a semantic
+    one. The row operations keep a placed entry placed.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "state_entry(mesh=) places state for sharded construction, "
-            "which waits for the mesh slice of the port (ROADMAP queue 1, "
-            "items 6 and 8)")
+    if mesh is not None and axis_name not in mesh.shape:
+        raise ValueError(
+            f"state_entry placement axis {axis_name!r} is not an axis "
+            f"of the mesh (axes: {tuple(mesh.shape)}); pass the mesh's "
+            "co-node ring axis as axis_name="
+        )
     dev = resolve_device(device)
 
     def zeros(shape, dt):
         return None if shape is None else torch.zeros(shape, dtype=dt, device=dev)
 
     graph_b = None if graph_shape is None else (graph_shape[0],)
+    placement = None
+    if (mesh is not None and sq_y_shape is not None
+            and sq_y_shape[-1] % mesh.shape[axis_name] == 0):
+        placement = NormPlacement(mesh, axis_name, sq_y_shape[-1])
+        sq_y_shape = tuple(sq_y_shape[:-1]) + (
+            sq_y_shape[-1] // mesh.shape[axis_name],)
     return DigcStateEntry(
+        sq_y_placement=placement,
         step=torch.zeros((), dtype=torch.int32, device=dev),
         centroids=zeros(centroids_shape, dtype),
         sq_y=zeros(sq_y_shape, torch.float32),

@@ -557,7 +557,8 @@ class DigcTuner:
         m = n if y is None else y.shape[-2]
         kd = spec.k * spec.dilation
         key = workload_key(b, n, m, d, kd, spec.causal,
-                           pos_bias is not None)
+                           pos_bias is not None,
+                           mesh_shape=spec.mesh_shape())
         if not force:
             cached = self.lookup(key)
             if cached is not None:

@@ -1,1 +1,2 @@
-# Step-time monitoring (straggler detection).
+# Distributed training pieces: int8 compressed all-reduce, the pipeline,
+# step-time monitoring (straggler detection).

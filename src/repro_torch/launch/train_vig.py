@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.core import available_impls
+from repro_torch.core import available_impls, get_builder
 from repro_torch.data.pipeline import DataConfig, image_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import to_device
@@ -45,6 +45,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if get_builder(args.digc_impl).distributed:
+        ap.error(f"--digc-impl {args.digc_impl} needs a device mesh; "
+                 "this single-host driver cannot drive it")
     dev = resolve_device(args.device)
 
     if args.full:

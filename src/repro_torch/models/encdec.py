@@ -64,7 +64,8 @@ def _dec_layer_spec(cfg: ModelConfig):
 def encdec_param_spec(cfg: ModelConfig):
     return {
         "embed": embed_spec(cfg),
-        "dec_pos": spec((MAX_DEC_POS, cfg.d_model), init="normal"),
+        "dec_pos": spec((MAX_DEC_POS, cfg.d_model), (None, "embed"),
+                        init="normal"),
         "enc": stack_specs(_enc_layer_spec(cfg), cfg.encdec.enc_layers),
         "enc_norm": norm_spec(cfg),
         "dec": stack_specs(_dec_layer_spec(cfg), cfg.num_layers),

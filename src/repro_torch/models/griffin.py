@@ -30,16 +30,16 @@ def rglru_spec(cfg: ModelConfig):
     w = _lru_width(cfg)
     k = cfg.hybrid.d_conv
     return {
-        "w_x": spec((d, w)),
-        "w_gate_branch": spec((d, w)),
-        "conv_w": spec((k, w), init="fanin"),
-        "conv_b": spec((w,), init="zeros"),
-        "w_input_gate": spec((w, w), init="fanin"),
-        "b_input_gate": spec((w,), init="zeros"),
-        "w_rec_gate": spec((w, w), init="fanin"),
-        "b_rec_gate": spec((w,), init="zeros"),
-        "lam": spec((w,), init="normal", scale=1.0),
-        "w_out": spec((w, d)),
+        "w_x": spec((d, w), ("embed", "mlp")),
+        "w_gate_branch": spec((d, w), ("embed", "mlp")),
+        "conv_w": spec((k, w), ("conv", "mlp"), init="fanin"),
+        "conv_b": spec((w,), ("mlp",), init="zeros"),
+        "w_input_gate": spec((w, w), ("mlp", None), init="fanin"),
+        "b_input_gate": spec((w,), (None,), init="zeros"),
+        "w_rec_gate": spec((w, w), ("mlp", None), init="fanin"),
+        "b_rec_gate": spec((w,), (None,), init="zeros"),
+        "lam": spec((w,), ("mlp",), init="normal", scale=1.0),
+        "w_out": spec((w, d), ("mlp", "embed")),
     }
 
 

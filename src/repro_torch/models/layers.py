@@ -32,11 +32,11 @@ NEG_INF = -1e30
 def norm_spec(cfg: ModelConfig, d: Optional[int] = None):
     d = d or cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": spec((d,), init="ones")}
+        return {"scale": spec((d,), ("embed",), init="ones")}
     if cfg.norm == "layernorm":
         return {
-            "scale": spec((d,), init="ones"),
-            "bias": spec((d,), init="zeros"),
+            "scale": spec((d,), ("embed",), init="ones"),
+            "bias": spec((d,), ("embed",), init="zeros"),
         }
     if cfg.norm == "nonparam_ln":  # OLMo: no learnable affine
         return {}
@@ -108,9 +108,11 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
 
 
 def embed_spec(cfg: ModelConfig):
-    s = {"tokens": spec((cfg.vocab_size, cfg.d_model), init="embed", scale=0.02)}
+    s = {"tokens": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                        init="embed", scale=0.02)}
     if not cfg.tie_embeddings:
-        s["unembed"] = spec((cfg.d_model, cfg.vocab_size), init="fanin")
+        s["unembed"] = spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                            init="fanin")
     return s
 
 
@@ -134,15 +136,15 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.activation == "swiglu":
         return {
-            "wi_gate": spec((d, f)),
-            "wi_up": spec((d, f)),
-            "wo": spec((f, d)),
+            "wi_gate": spec((d, f), ("embed", "mlp")),
+            "wi_up": spec((d, f), ("embed", "mlp")),
+            "wo": spec((f, d), ("mlp", "embed")),
         }
     return {
-        "wi": spec((d, f)),
-        "bi": spec((f,), init="zeros"),
-        "wo": spec((f, d)),
-        "bo": spec((d,), init="zeros"),
+        "wi": spec((d, f), ("embed", "mlp")),
+        "bi": spec((f,), ("mlp",), init="zeros"),
+        "wo": spec((f, d), ("mlp", "embed")),
+        "bo": spec((d,), ("embed",), init="zeros"),
     }
 
 
@@ -164,18 +166,18 @@ def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def attention_spec(cfg: ModelConfig):
     d, h, kvh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh
     s = {
-        "wq": spec((d, h, dh)),
-        "wk": spec((d, kvh, dh)),
-        "wv": spec((d, kvh, dh)),
-        "wo": spec((h, dh, d)),
+        "wq": spec((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": spec((d, kvh, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": spec((d, kvh, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": spec((h, dh, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        s["bq"] = spec((h, dh), init="zeros")
-        s["bk"] = spec((kvh, dh), init="zeros")
-        s["bv"] = spec((kvh, dh), init="zeros")
+        s["bq"] = spec((h, dh), ("heads", "head_dim"), init="zeros")
+        s["bk"] = spec((kvh, dh), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = spec((kvh, dh), ("kv_heads", "head_dim"), init="zeros")
     if cfg.qk_norm:
-        s["q_norm"] = spec((dh,), init="ones")
-        s["k_norm"] = spec((dh,), init="ones")
+        s["q_norm"] = spec((dh,), ("head_dim",), init="ones")
+        s["k_norm"] = spec((dh,), ("head_dim",), init="ones")
     return s
 
 

@@ -39,13 +39,14 @@ def mla_spec(cfg: ModelConfig):
     d, h = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_dim + m.qk_rope_dim
     return {
-        "wq": spec((d, h, qk)),
-        "w_dkv": spec((d, m.kv_lora)),
-        "w_kpe": spec((d, m.qk_rope_dim)),
-        "kv_norm": spec((m.kv_lora,), init="ones"),
-        "w_uk": spec((m.kv_lora, h, m.qk_nope_dim)),
-        "w_uv": spec((m.kv_lora, h, m.v_dim)),
-        "wo": spec((h, m.v_dim, d)),
+        "wq": spec((d, h, qk), ("embed", "heads", "head_dim")),
+        "w_dkv": spec((d, m.kv_lora), ("embed", "kv_lora")),
+        "w_kpe": spec((d, m.qk_rope_dim), ("embed", "head_dim")),
+        "kv_norm": spec((m.kv_lora,), ("kv_lora",), init="ones"),
+        "w_uk": spec((m.kv_lora, h, m.qk_nope_dim),
+                     ("kv_lora", "heads", "head_dim")),
+        "w_uv": spec((m.kv_lora, h, m.v_dim), ("kv_lora", "heads", "head_dim")),
+        "wo": spec((h, m.v_dim, d), ("heads", "head_dim", "embed")),
     }
 
 

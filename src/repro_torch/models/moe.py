@@ -1,13 +1,18 @@
 """Mixture-of-Experts (port of ``repro/models/moe.py``): the fp32 router
-with its Switch load-balance loss, every expert on every token weighted by
-the zeroed combine matrix, and the shared experts.
+with its Switch load-balance loss, the shared experts, and two paths:
 
-This is the function JAX computes on one device (``_dense_moe``, the
-capacity-unlimited reference: nothing is dropped). JAX's expert-parallel
-path (``_local_expert_moe`` under ``shard_map``, fixed-capacity buffers
-that drop overflow) needs a mesh: ``moe_apply(mesh=)`` with a model axis
-larger than 1 raises ``NotImplementedError`` naming the ROADMAP item that
-ports it; nothing runs the dense form in its place.
+* no mesh, or a mesh whose model axis is 1: every expert on every token
+  weighted by the zeroed combine matrix (``_dense_moe``, JAX's
+  single-device path, the capacity-unlimited reference: nothing drops);
+* a mesh with a model axis larger than 1: expert parallelism
+  (``_local_expert_moe``). SPMD over ``torch.distributed``: every rank
+  holds the global tokens and weights, takes its batch rows (split over
+  the mesh's ``pod`` / ``data`` axes) and its ``E / |model|`` experts,
+  routes its rows, packs the tokens bound for its experts into
+  fixed-capacity buffers in token-order priority (overflow goes to a
+  dropped row, GShard's semantics), runs the expert products, and an
+  all-reduce over the model axis combines the experts' outputs; the rows
+  are gathered back, so every rank returns the global output.
 
 Top-k follows ``lax.top_k``: ties go to the lowest expert index (a stable
 descending sort; ``torch.topk`` promises no order among equal values).
@@ -18,25 +23,27 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import all_gather, all_reduce
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import spec
+from repro_torch.models.module import active_mesh, spec
 
 
 def moe_spec(cfg: ModelConfig):
     m = cfg.moe
     d, e, f = cfg.d_model, m.num_experts, m.d_expert
     s = {
-        "router": spec((d, e), init="fanin", dtype=torch.float32),
-        "w_gate": spec((e, d, f)),
-        "w_up": spec((e, d, f)),
-        "w_down": spec((e, f, d)),
+        "router": spec((d, e), ("embed", None), init="fanin",
+                       dtype=torch.float32),
+        "w_gate": spec((e, d, f), ("experts", "embed", "expert_mlp")),
+        "w_up": spec((e, d, f), ("experts", "embed", "expert_mlp")),
+        "w_down": spec((e, f, d), ("experts", "expert_mlp", "embed")),
     }
     if m.num_shared:
         fs = m.d_expert * m.num_shared
         s["shared"] = {
-            "wi_gate": spec((d, fs)),
-            "wi_up": spec((d, fs)),
-            "wo": spec((fs, d)),
+            "wi_gate": spec((d, fs), ("embed", "mlp")),
+            "wi_up": spec((d, fs), ("embed", "mlp")),
+            "wo": spec((fs, d), ("mlp", "embed")),
         }
     return s
 
@@ -87,21 +94,96 @@ def _dense_moe(params, x: torch.Tensor, cfg: ModelConfig):
     return out.reshape(b, s, d), metrics
 
 
+def _local_expert_moe(x_loc, router_w, w_gate, w_up, w_down, *, m, dt,
+                      mesh, axis_name: str, n_shards: int):
+    """One rank's rows through its expert shard. x_loc (b_loc, s, d);
+    w_* the rank's (E_loc, ...) experts. Returns (out summed over the
+    model axis, aux of these rows, drop fraction over the model axis)."""
+    b, s, d = x_loc.shape
+    tokens = x_loc.reshape(-1, d)
+    t, k = tokens.shape[0], m.top_k
+    e_loc = w_gate.shape[0]
+    e = e_loc * n_shards
+    e0 = mesh.coordinate(axis_name) * e_loc
+
+    probs = torch.softmax(tokens.float() @ router_w.float(), dim=-1)
+    gates, sel = top_k(probs, k)
+    gates = gates / gates.sum(-1, keepdim=True)
+    experts = torch.arange(e, device=sel.device)
+    aux = e * ((sel[:, :1] == experts).float().mean(0) * probs.mean(0)).sum()
+
+    cap = max(int(t * k / e * m.capacity_factor), 4)
+    # local expert ids; out of range -> the overflow row
+    lid = sel - e0  # (T, k)
+    in_range = (lid >= 0) & (lid < e_loc)
+    lid_c = torch.where(in_range, lid, torch.zeros_like(lid))
+    # position of each (t, j) within its expert, priority by token order
+    onehot = F.one_hot(lid_c, e_loc) * in_range[..., None]
+    flat = onehot.reshape(t * k, e_loc)
+    pos = torch.cumsum(flat, dim=0) - flat  # entries before this one
+    pos_sel = (pos * flat).sum(1).reshape(t, k)
+    keep = in_range & (pos_sel < cap)
+    dropped = (in_range & (pos_sel >= cap)).sum().float()
+
+    slot = torch.where(keep, lid_c * cap + pos_sel,
+                       torch.full_like(lid_c, e_loc * cap)).reshape(-1)
+    tok_idx = torch.arange(t, device=tokens.device).repeat_interleave(k)
+    buf = torch.zeros(e_loc * cap + 1, d, dtype=dt, device=tokens.device)
+    buf.index_add_(0, slot, tokens[tok_idx].to(dt))
+    buf = buf[:e_loc * cap].reshape(e_loc, cap, d)
+
+    h = F.silu(buf @ w_gate.to(dt)) * (buf @ w_up.to(dt))
+    y = h @ w_down.to(dt)  # (E_loc, cap, d)
+    y_flat = torch.cat([y.reshape(e_loc * cap, d), y.new_zeros(1, d)])
+    gathered = y_flat[slot].reshape(t, k, d)
+    w = torch.where(keep, gates, torch.zeros_like(gates))
+    out = (gathered.float() * w[..., None]).sum(1)
+    out = all_reduce(out.to(dt), mesh, axis_name)
+    dropped = all_reduce(dropped, mesh, axis_name) / float(t * k)
+    return out.reshape(b, s, d), aux, dropped
+
+
+def _expert_parallel(params, x, cfg: ModelConfig, mesh, model_axis: str):
+    """``_local_expert_moe`` on this rank's rows and experts, the rows
+    gathered back. The metrics are those of the first batch shard on
+    every rank, as JAX's replicated ``out_specs`` read device 0's."""
+    m = cfg.moe
+    n_shards = mesh.shape[model_axis]
+    assert m.num_experts % n_shards == 0, (m.num_experts, n_shards)
+    e_loc = m.num_experts // n_shards
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    shards, shard = 1, 0
+    for a in batch_axes:
+        shards, shard = shards * mesh.shape[a], shard * mesh.shape[a] + \
+            mesh.coordinate(a)
+    b_loc = x.shape[0] // shards
+    e0 = mesh.coordinate(model_axis) * e_loc
+    experts = slice(e0, e0 + e_loc)
+    out, aux, drop = _local_expert_moe(
+        x[shard * b_loc:(shard + 1) * b_loc], params["router"],
+        params["w_gate"][experts], params["w_up"][experts],
+        params["w_down"][experts], m=m, dt=cfg.compute_dtype, mesh=mesh,
+        axis_name=model_axis, n_shards=n_shards)
+    metrics = torch.stack([aux, drop])[None]
+    for a in reversed(batch_axes):  # innermost axis first: row-major order
+        out = all_gather(out, mesh, a, 0)
+        metrics = all_gather(metrics, mesh, a, 0)
+    return out, {"moe_aux": metrics[0, 0], "moe_drop_frac": metrics[0, 1]}
+
+
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
               model_axis: str = "model"):
     """Returns (out, {"moe_aux", "moe_drop_frac"}), the shared experts
-    added. ``mesh`` exposes ``axis_names`` and a ``shape`` mapping, as a
-    JAX mesh does; one whose ``model_axis`` is larger than 1 raises: the
-    expert-parallel dispatch is not ported."""
+    added. Expert-parallel when ``mesh`` (default: the ``use_mesh``
+    context's) has a ``model_axis`` larger than 1, else dense."""
     m = cfg.moe
     dt = cfg.compute_dtype
+    mesh = mesh or active_mesh()
     if (mesh is not None and model_axis in mesh.axis_names
             and mesh.shape[model_axis] > 1):
-        raise NotImplementedError(
-            f"{cfg.name!r}: expert-parallel MoE over a mesh's {model_axis!r} "
-            "axis (models/moe.py::_local_expert_moe) waits for the mesh "
-            "slice of the port (ROADMAP queue 1, item 6)")
-    out, metrics = _dense_moe(params, x, cfg)
+        out, metrics = _expert_parallel(params, x, cfg, mesh, model_axis)
+    else:
+        out, metrics = _dense_moe(params, x, cfg)
     if m.num_shared:
         sh = params["shared"]
         g = x @ sh["wi_gate"].to(dt)

@@ -32,14 +32,15 @@ def ssm_spec(cfg: ModelConfig):
     s, d_in, heads, conv_dim = _dims(cfg)
     d = cfg.d_model
     return {
-        "in_proj": spec((d, 2 * d_in + 2 * s.n_groups * s.d_state + heads)),
-        "conv_w": spec((s.d_conv, conv_dim), init="fanin"),
-        "conv_b": spec((conv_dim,), init="zeros"),
-        "a_log": spec((heads,), init="zeros"),
-        "d_skip": spec((heads,), init="ones"),
-        "dt_bias": spec((heads,), init="zeros"),
-        "norm": spec((d_in,), init="ones"),
-        "out_proj": spec((d_in, d)),
+        "in_proj": spec((d, 2 * d_in + 2 * s.n_groups * s.d_state + heads),
+                        ("embed", "mlp")),
+        "conv_w": spec((s.d_conv, conv_dim), ("conv", "mlp"), init="fanin"),
+        "conv_b": spec((conv_dim,), ("mlp",), init="zeros"),
+        "a_log": spec((heads,), ("heads",), init="zeros"),
+        "d_skip": spec((heads,), ("heads",), init="ones"),
+        "dt_bias": spec((heads,), ("heads",), init="zeros"),
+        "norm": spec((d_in,), ("mlp",), init="ones"),
+        "out_proj": spec((d_in, d), ("mlp", "embed")),
     }
 
 

@@ -86,8 +86,9 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def stack_specs(tree, n: int):
-    return map_tree(lambda _, s: ParamSpec((n,) + s.shape, s.init, s.scale,
-                                           s.dtype), tree)
+    return map_tree(lambda _, s: ParamSpec(
+        (n,) + s.shape, s.init, s.scale, s.dtype,
+        None if s.axes is None else ("layers",) + s.axes), tree)
 
 
 def _layer_kind(cfg: ModelConfig) -> str:

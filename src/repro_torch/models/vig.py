@@ -474,6 +474,7 @@ def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
 
 def init_vig_state(cfg: VigConfig, batch: int,
                    digc_impl: DigcChoice = None, *, per_slot: bool = False,
+                   mesh=None, mesh_axis: str = "data",
                    grid: Optional[int] = None, device="cuda") -> DigcState:
     """The functional DIGC state for a model and batch size, on
     ``device``: one entry per stage (the key ``grapher_block`` passes)
@@ -490,11 +491,20 @@ def init_vig_state(cfg: VigConfig, batch: int,
     never engages the cache). ``grid`` sizes the state for a serving grid
     (default: the native one): the multi-resolution engine keeps one
     state per image size, each sized by the plans its forward runs.
+
+    ``mesh`` / ``mesh_axis`` place every entry for the ring
+    (``state_entry(mesh=)``); a spec that names its own mesh
+    (``spec.mesh`` / ``spec.axis_name``) wins over the arguments, so a
+    mixed schedule places each stage where it runs. A ViG forward's
+    co-nodes are its own features, so its entries carry counters only:
+    placement matters once a caller allocates gallery norms.
     """
     rows = batch if per_slot else None
     entries = {}
     for plan in vig_stage_plans(cfg, digc_impl, grid=grid):
         spec = plan.spec
+        stage_mesh = spec.mesh if spec.mesh is not None else mesh
+        stage_axis = spec.axis_name if spec.axis_name is not None else mesh_axis
         cents = None
         if spec.impl == "cluster":
             n_clusters, _ = default_cluster_params(plan.m, spec.n_clusters,
@@ -503,7 +513,8 @@ def init_vig_state(cfg: VigConfig, batch: int,
         policy, _, _ = reuse_params(spec)
         graph = (batch, plan.n, plan.k_effs[0]) if policy is not None else None
         entries[plan.key] = state_entry(centroids_shape=cents, rows=rows,
-                                        graph_shape=graph, device=device)
+                                        graph_shape=graph, mesh=stage_mesh,
+                                        axis_name=stage_axis, device=device)
     return DigcState.init(entries)
 
 

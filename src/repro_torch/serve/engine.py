@@ -96,7 +96,18 @@ merges. The tuner's host-keyed JSON cache (``tuner_path``) makes a later
 engine tune nothing, and also keeps the bucket set that
 ``retune_buckets()`` derives from the served trace's live-lane histogram,
 which ``buckets="auto"`` reads back. The direct path (``infer``) runs
-eagerly. Not ported: the mesh (``_tick_width`` is the bucket).
+eagerly.
+
+Mesh-native serving (``mesh=``, DESIGN.md §10): the construction spec is
+threaded with the mesh (``mesh_axis`` names the co-node ring axis,
+``mesh_batch_axis`` optionally shards a tick's rows data-parallel), the
+slot state is allocated placed (``init_vig_state(mesh=)``), and every
+cell's program runs the ring builder. SPMD: every rank runs the same
+engine on the same requests and gets the same logits; only the ring's
+shards differ between ranks. A tick whose bucket the batch axis does not
+divide is padded up to the next multiple (``_tick_width``), its padding
+lanes replicating lane 0. On a one-rank mesh no collective is issued, so
+the bucket programs are captured on a card as they are without a mesh.
 """
 
 from __future__ import annotations
@@ -326,7 +337,8 @@ class VigServeEngine:
                  deadline_strikes: int = 2, retry_attempts: int = 3,
                  retry_backoff: float = 0.02, slo_ms=0.0,
                  clock: Optional[Callable[[], float]] = None,
-                 prefetch: bool = True, device="cuda"):
+                 prefetch: bool = True, mesh=None, mesh_axis: str = "data",
+                 mesh_batch_axis: Optional[str] = None, device="cuda"):
         if mode not in ("jit", "eager"):
             raise ValueError(f"mode must be 'jit' or 'eager', got {mode!r}")
         self.device = resolve_device(device)
@@ -366,6 +378,16 @@ class VigServeEngine:
         self.image_sizes = sizes
         if auto:
             buckets = self._auto_bucket_set(self.batch, tuner_path)
+        # Mesh-native mode (DESIGN.md §10): the mesh goes into the
+        # construction spec, so every cell's program and the slot state
+        # see one placement.
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.mesh_batch_axis = mesh_batch_axis
+        if mesh is not None:
+            self._check_mesh(digc_impl, buckets)
+            self.spec = self.spec.replace(
+                mesh=mesh, axis_name=mesh_axis, batch_axis=mesh_batch_axis)
         # Only a user-provided schedule applies to every bucket: one that
         # warmup() tuned is a measurement at self.batch.
         self._user_schedule = isinstance(digc_impl, VigSchedule)
@@ -503,11 +525,47 @@ class VigServeEngine:
             return bucket
         return (size, bucket)
 
+    def _check_mesh(self, digc_impl, buckets) -> None:
+        """Refuse a mesh the engine cannot serve, before any slot state
+        exists (JAX's messages)."""
+        if isinstance(digc_impl, VigSchedule):
+            raise ValueError(
+                "mesh= applies one placement to every stage; a "
+                "pre-tuned VigSchedule carries per-stage specs — "
+                "set mesh/axis_name on its stage specs instead")
+        if not {"mesh", "axis_name"} <= get_builder(self.spec.impl).knobs:
+            raise ValueError(
+                f"DIGC impl {self.spec.impl!r} is not mesh-native "
+                "(no mesh/axis_name knobs); sharded serving needs "
+                "a distributed builder (ring)")
+        if self.mesh_batch_axis is None:
+            return
+        if buckets is None:
+            # The exact-size policy serves every count 1..slots, most of
+            # which cannot divide a sharded batch axis.
+            raise ValueError(
+                "mesh_batch_axis requires a bucket set: the exact-size "
+                "policy (buckets=None) serves arbitrary batch sizes, which "
+                "cannot all divide a sharded batch axis")
+        dsz = int(self.mesh.shape[self.mesh_batch_axis])
+        bad = [v for v in buckets if v < dsz]
+        if bad:
+            # A bucket below the axis cannot give every rank a live row;
+            # a bucket that merely does not divide it pads per tick.
+            raise ValueError(
+                f"bucket sizes {bad} are smaller than the "
+                f"{self.mesh_batch_axis!r} mesh axis ({dsz} devices); "
+                "configure buckets >= the axis size (non-dividing buckets "
+                "are padded per tick)")
+
     def _tick_width(self, bucket: int) -> int:
-        """The batch width of a tick's program: the bucket (the JAX
-        engine widens it to a multiple of a sharded batch axis; the mesh
-        is not ported)."""
-        return bucket
+        """The batch width of a tick's program: the bucket, padded up to
+        the next ``mesh_batch_axis`` multiple when the rows are sharded
+        data-parallel (padding lanes replicate lane 0)."""
+        if self.mesh is None or self.mesh_batch_axis is None:
+            return bucket
+        dsz = int(self.mesh.shape[self.mesh_batch_axis])
+        return -(-bucket // dsz) * dsz
 
     def _token_key(self, size: int, slot: int):
         """Integrity tokens are per (size, slot): the bare slot on a
@@ -1018,6 +1076,7 @@ class VigServeEngine:
             choice = self.schedule if self._user_schedule else self.spec
             self._slot_states[size] = init_vig_state(
                 self.cfg, self.slots, choice, per_slot=True,
+                mesh=self.mesh, mesh_axis=self.mesh_axis,
                 grid=size // self.cfg.patch, device=self.device)
         return self._slot_states[size]
 
@@ -1546,6 +1605,8 @@ class VigServeEngine:
                        else self._slo_ms),
             "prefetch_issued": self.prefetch_issued,
             "prefetch_hits": self.prefetch_hits,
+            "mesh": (None if self.mesh is None
+                     else {k: int(v) for k, v in self.mesh.shape.items()}),
             "slot_tenants": list(self.slot_tenant),
             "digc_state": self.state_steps(),
             "slot_row_steps": self.slot_row_steps(),

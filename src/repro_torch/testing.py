@@ -1,12 +1,22 @@
 """Numpy-only helpers shared by the tests and ``chip_smoke.py``: seeded
-inputs and the near-tie-tolerant top-k comparison (which the tuner's
-correctness gate uses too)."""
+inputs, the near-tie-tolerant top-k comparison (which the tuner's
+correctness gate uses too) and ``run_ranks``, which runs one program in a
+group of rank processes."""
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+import tempfile
+import textwrap
+import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+SRC = str(Path(__file__).resolve().parent.parent)
 
 
 def topk_mismatch(idx_a, dist_a, idx_b, dist_b, rtol: float = 1e-5,
@@ -91,3 +101,65 @@ def neighbour_ids(seed: int, b: int, n: int, k: int, m: int) -> np.ndarray:
 def images(seed: int, b: int, size: int, chans: int = 3) -> np.ndarray:
     """(b, size, size, chans) float32 images."""
     return features(seed, b, size, size, chans)
+
+
+def run_ranks(snippet: str, world_size: int, timeout: float = 120.0,
+              threads: int = 1) -> list[str]:
+    """Run a dedented Python snippet in ``world_size`` ``python -c``
+    processes, one per rank, and return each rank's stdout in rank order.
+
+    Each process gets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and a
+    ``FileStore`` path in a fresh temporary directory
+    (``REPRO_TORCH_FILESTORE``, which ``launch.mesh.make_mesh`` reads), so
+    concurrent groups share no port; ``PYTHONPATH`` leads with this
+    package's source tree and ``OMP_NUM_THREADS`` is ``threads``. When a
+    rank fails, or the group outlives ``timeout`` seconds, every rank is
+    killed and ``RuntimeError`` carries the failing rank's stderr."""
+    code = textwrap.dedent(snippet)
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        procs, outs, errs = [], [], []
+        for rank in range(world_size):
+            env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+                   "WORLD_SIZE": str(world_size),
+                   "REPRO_TORCH_FILESTORE": os.path.join(tmp, "store"),
+                   "OMP_NUM_THREADS": str(threads),
+                   "PYTHONPATH": os.pathsep.join(
+                       p for p in (SRC, os.environ.get("PYTHONPATH")) if p)}
+            out = open(os.path.join(tmp, f"out{rank}"), "w+")
+            err = open(os.path.join(tmp, f"err{rank}"), "w+")
+            outs.append(out)
+            errs.append(err)
+            procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                          stdout=out, stderr=err, env=env))
+        deadline = time.monotonic() + timeout
+        failed = None
+        try:
+            while any(p.poll() is None for p in procs):
+                failed = next((r for r, p in enumerate(procs)
+                               if p.returncode not in (None, 0)), None)
+                if failed is not None or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+            else:
+                failed = next((r for r, p in enumerate(procs)
+                               if p.returncode != 0), None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for f in outs + errs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        if failed is None and any(p.returncode != 0 for p in procs):
+            raise RuntimeError(
+                f"{world_size} ranks passed their {timeout:.0f} s timeout "
+                f"and were killed; rank 0 stderr:\n{texts[world_size][-4000:]}")
+        if failed is not None:
+            raise RuntimeError(
+                f"rank {failed} of {world_size} exited with "
+                f"{procs[failed].returncode}:\n"
+                f"{texts[world_size + failed][-4000:]}")
+        return texts[:world_size]

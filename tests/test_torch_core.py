@@ -32,10 +32,11 @@ RTOL, ATOL = 1e-5, 1e-4
 
 def test_registry_lists_ported_tiers_and_rejects_the_rest():
     assert builder.available_impls() == (
-        "axial", "blocked", "cluster", "cuda", "reference")
+        "axial", "blocked", "cluster", "cuda", "reference", "ring")
     assert builder.get_builder("cuda").aggregate is not None
-    with pytest.raises(ValueError, match=r"unknown DIGC impl: 'ring'.*cuda"):
-        builder.get_builder("ring")
+    # JAX's Pallas tier is the port's cuda tier
+    with pytest.raises(ValueError, match=r"unknown DIGC impl: 'pallas'.*cuda"):
+        builder.get_builder("pallas")
 
 
 # Knobs of other tiers (the engine's group width and merge knobs, the JAX
@@ -59,7 +60,7 @@ def test_cuda_builder_rejects_causal_pos_bias_and_pad_masks():
     assert digc.digc(x, k=2, impl="cuda",
                      pos_bias=torch.zeros(8, 8)).shape == (1, 8, 2)
     with pytest.raises(ValueError,
-                       match="pad-capable impls: \\['blocked', 'reference'\\]"):
+                       match="pad-capable impls: \\['blocked', 'reference', 'ring'\\]"):
         digc.digc(x, k=2, impl="cuda", m_valid=torch.ones(8, dtype=torch.bool))
 
 

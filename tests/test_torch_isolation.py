@@ -2,6 +2,7 @@
 neither JAX nor the JAX package, and the entry points do not quietly run
 on the CPU when a card was asked for."""
 
+import ast
 import json
 import os
 import subprocess
@@ -19,6 +20,11 @@ from repro_torch.models import convert, module, transformer, vig  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, VigServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
+# The ring and mesh slice's modules.
+MESH_MODULES = ("repro_torch.core.ring", "repro_torch.launch.mesh",
+                "repro_torch.distributed.compression",
+                "repro_torch.distributed.pipeline",
+                "repro_torch.distributed.tree")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -48,9 +54,25 @@ def test_port_and_chip_smoke_import_no_jax():
                  "repro_torch.launch.train", "repro_torch.launch.train_vig",
                  "repro_torch.train.trainer", "repro_torch.ckpt.checkpoint",
                  "repro_torch.data.pipeline",
-                 "repro_torch.distributed.straggler"):
+                 "repro_torch.distributed.straggler",
+                 *MESH_MODULES):
         assert name in out["modules"]
     assert out["bad"] == []
+
+
+@pytest.mark.parametrize("name", MESH_MODULES)
+def test_mesh_modules_import_neither_jax_nor_repro(name):
+    """Every import statement of the slice's modules, read from the
+    source (function-level imports included)."""
+    path = ROOT / "src" / (name.replace(".", "/") + ".py")
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert roots, name
+    assert not roots & {"jax", "jaxlib", "repro"}, (name, sorted(roots))
 
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked():

@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke as jax_smoke  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.module import init_params as jax_init_params  # noqa: E402
+from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.module import leaves  # noqa: E402
@@ -149,12 +150,33 @@ def test_router_ties_go_to_the_lowest_index_as_in_jax(ties):
 
 
 def test_moe_apply_on_a_mesh_raises_naming_item_6():
+    """The raise is gone: a model axis of 2 runs expert-parallel on two
+    gloo ranks, equal to the dense function when nothing drops (the
+    expert-parallel tests against JAX are in test_torch_distributed.py)."""
     _, cfg, _, tp = _setup("deepseek-v2-lite-16b")
     x = torch.from_numpy(_x(cfg, 4))
-    mesh = types.SimpleNamespace(axis_names=("data", "model"),
-                                 shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        moe.moe_apply(tp, x, cfg, mesh=mesh)
+    outs = testing.run_ranks("""
+        import dataclasses, torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import moe
+        from repro_torch.models.module import init_params
+        cfg = get_smoke("deepseek-v2-lite-16b").replace(dtype="float32")
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=8.0))
+        p = init_params(moe.moe_spec(cfg),
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+        x = torch.randn(4, 8, cfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+        mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+        out, met = moe.moe_apply(p, x, cfg, mesh=mesh)
+        ref, _ = moe.moe_apply(p, x, cfg)
+        print(float((out - ref).abs().max()), float(met["moe_drop_frac"]))
+    """, 2, timeout=120)
+    for line in outs:
+        err, drop = map(float, line.split())
+        assert err < 1e-4 and drop == 0.0
     # one model shard, or no model axis, is the single-device function
     ref, _ = moe.moe_apply(tp, x, cfg)
     for mesh in (types.SimpleNamespace(axis_names=("data", "model"),

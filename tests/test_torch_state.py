@@ -118,8 +118,12 @@ def test_state_entry_layout_matches_jax(kw):
 
 
 def test_state_entry_rejects_a_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        state_entry(mesh=object(), device=CPU)
+    # a mesh without the placement axis is refused with JAX's message
+    from repro_torch.launch.mesh import abstract_mesh
+
+    with pytest.raises(ValueError, match="not an axis"):
+        state_entry(sq_y_shape=(1, 8), mesh=abstract_mesh((1,), ("data",)),
+                    axis_name="ring", device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             state_entry()
