@@ -261,13 +261,39 @@ Phases, each printed as it runs; any failure exits non-zero:
     4), every request's logits bit for bit the unsharded ``blocked``
     engine's where every layer's lists are equal, the rest within 1e-3 of
     the largest logit. The CPU part's times are the CPU's wall clock.
+28. the dry-run tooling and the examples' twins (no kernel of their own
+    but quickstart's): (a) ``launch.dryrun.run_meshes`` for every (arch,
+    shape) cell on both abstract production meshes (pod16x16, pod2x16x16)
+    in spawned worker processes on the host, meta tensors only: 64 ok, 16
+    skipped, no error; the wall time and the pod16x16 table of
+    ``launch.report``; (b) ``launch.roofline.count`` on the meta
+    arguments of ``olmo-1b``'s decode step (4 slots, a 40-position cache,
+    phase 22's) and its 8 x 128 train step (phase 26's), all-bf16 cells
+    on a one-card abstract mesh, against the same steps on the card:
+    argument bytes within 1% of what the card allocates, the predicted
+    peak of intermediates beside ``max_memory_allocated`` less the
+    arguments (within ``PEAK_BAND``), the compute and memory terms beside
+    the step's ms (CUDA events); (c) the five twins of
+    ``repro_torch.examples`` through their ``main`` with their defaults:
+    quickstart's ``cuda`` lists hold to ``blocked`` by the near-tie rule
+    and launch the DIGC kernel, nan_smoke's ``NanCheck`` passes, serve_lm,
+    serve_trace's tuned bucket set, kNN against dense attention at S =
+    2048; (d) ``VigServeEngine(mode="eager", digc_impl="cluster")`` at full
+    width on calls of 8, 8, 4 and 8 images: ``stats()["digc_cache"]``
+    exactly the hits and misses the keys give, every call bit for bit
+    ``vig_forward(cache=)``, no kernel launched; each call's recall
+    against the exact lists beside a cache-free call's, the mean over the
+    calls within ``SHIM_RECALL_SLACK`` of the same engine's on the host's
+    CPU (the warm starts' recall loss is the reference's,
+    ``tools/cache_warm_recall.py``).
 
 Each path of phases 4, 5, 8, 10, 12, 14 and 19 runs with the launch counts
 set to 0 just before it and read just after; a kernel or variant of that
 path with no launch fails the run (phases 9, 15 and 16 run the blocked
 tier, which must launch none; so do phase 21's cluster engines, the LM
 phases 22, 23 and 24, phases 25 and 26's runs but the served trained
-weights, which must launch both kernels, and phase 27's ring engine). A
+weights, which must launch both kernels, phase 27's ring engine and phase
+28's eager shim; phase 28's quickstart must launch the DIGC kernel). A
 replayed graph adds the launches its capture recorded. Every engine
 outside phases 17 and 21 (c) must end with
 ``fallback_level`` 0 and no logged fault. The line before the last is the kernel summary
@@ -278,15 +304,20 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
+import multiprocessing
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -325,7 +356,13 @@ from repro_torch.train import optimizer  # noqa: E402
 from repro_torch.train.trainer import init_train_state, make_train_step, value_and_grad  # noqa: E402
 from repro_torch.core.ring import ring_digc  # noqa: E402
 from repro_torch.core.state import DigcState, state_entry  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import abstract_mesh, make_mesh  # noqa: E402
+from repro_torch.core.engine import DigcCache  # noqa: E402
+from repro_torch.examples import knn_attention_longctx, nan_smoke, quickstart  # noqa: E402
+from repro_torch.examples import serve_lm as ex_serve_lm  # noqa: E402
+from repro_torch.examples import serve_trace as ex_serve_trace  # noqa: E402
+from repro_torch.launch import dryrun, report, roofline  # noqa: E402
+from repro_torch.launch.specs import step_cell  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32
 # and bf16 on the tensor cores, HBM3 rate.
@@ -4224,6 +4261,261 @@ def ring_and_mesh() -> None:
     print(f"phase 27 wall time: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the dry-run tooling and the examples on the card
+
+# Processes tracing the dry-run grid: one per core of an 8-core host.
+GRID_WORKERS = 8
+# Phase 28 (b)'s steps: phase 22's olmo-1b decode step at 4 slots against
+# launch.serve's cache (16 prompt + 16 new + 8 positions), and phase 26's
+# 8 x 128 training step.
+ANALYZED_STEPS = (("decode", 40, 4), ("train", 128, 8))
+# The measured peak of intermediates over the dry-run's prediction.
+PEAK_BAND = (0.9, 1.1)
+# (d): the eager shim's calls (batch sizes), and how far the card's mean
+# recall over the calls may lie from the CPU's: fp32 sums in other orders
+# move k-means assignments, and warm starts carry a moved centroid into
+# the next block (one call's gap reached 0.032; the mean's, 0.011).
+SHIM_BATCHES = (8, 8, 4, 8)
+SHIM_RECALL_SLACK = 0.05
+
+
+def dryrun_grid() -> None:
+    """(a): ``dryrun.run_meshes`` for every (arch, shape) cell on both
+    abstract production meshes, in worker processes."""
+    cells = [(a, s) for a in lm_configs.ARCH_IDS for s in lm_configs.SHAPES]
+    workers = min(GRID_WORKERS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+            futures = [pool.submit(dryrun.run_meshes, a, s, out_dir=tmp)
+                       for a, s in cells]
+            recs = [r for f in futures for r in f.result()]
+    wall = time.perf_counter() - t0
+    counts = report.summary(recs)
+    for rec in recs:
+        if rec["status"] == "error":
+            print(dryrun.describe(rec))
+            print(rec["traceback"])
+    print(f"dry-run grid: {len(cells)} (arch, shape) cells x 2 meshes in "
+          f"{wall:.1f} s of wall clock on the host's CPU ({workers} "
+          f"processes, meta tensors, no card): {counts}")
+    print(report.table(recs, "pod16x16"))
+    if counts != {"ok": 64, "skipped": 16, "error": 0}:
+        raise AssertionError(f"dry-run grid: {counts}")
+
+
+def materialize(tree, seq: int, gen: torch.Generator):
+    """Card tensors of a tree of meta tensors' shapes and dtypes: floats
+    N(0, 0.02^2), integers in [0, seq) (tokens, labels, positions)."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_floating_point():
+            return (torch.randn(tree.shape, generator=gen, device=DEV)
+                    * 0.02).to(tree.dtype)
+        return torch.randint(0, seq, tree.shape, generator=gen, device=DEV,
+                             dtype=tree.dtype)
+    if isinstance(tree, dict):
+        return {k: materialize(v, seq, gen) for k, v in tree.items()}
+    items = [materialize(v, seq, gen) for v in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+def analyzed_step(cfg, kind: str, seq: int, batch: int, smi: str) -> None:
+    """(b), one step: ``roofline.count`` on the dry-run cell's meta
+    arguments against the same step on the card."""
+    cell = step_cell(cfg, kind, seq, batch, abstract_mesh((1, 1), ("data", "model")))
+    pred = roofline.count(cell["fn"], *cell["args"])
+    roof = roofline.terms(pred["flops"], pred["hbm_bytes"], 0.0)
+    arg_pred = dryrun.sharded_bytes(cell["args"], cell["in_shardings"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    args = materialize(cell["args"], seq, torch.Generator(device=DEV).manual_seed(2800))
+    torch.cuda.synchronize()
+    arg_card = torch.cuda.memory_allocated() - before
+    cell["fn"](*args)  # warm-up: cuBLAS takes its workspace on first use
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = cell["fn"](*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    step_ms = _events_ms(lambda: cell["fn"](*args), 3)
+    what = f"olmo-1b {kind} step, {batch} x {seq}"
+    print(f"{what} ({smi}): argument bytes {arg_pred} predicted (shard shapes "
+          f"on a one-card mesh), {arg_card} allocated on the card "
+          f"({100 * (arg_card / arg_pred - 1):+.3f}%); peak of intermediates "
+          f"{pred['peak_bytes'] / 1e9:.3f} GB predicted, "
+          f"{peak / 1e9:.3f} GB measured (max_memory_allocated less the "
+          f"arguments; x{peak / pred['peak_bytes']:.3f}); {pred['ops']} aten "
+          f"operations, {pred['flops']:.4g} FLOPs and {pred['hbm_bytes']:.4g} "
+          f"bytes counted: compute term {roof.compute_s * 1e3:.3f} ms, memory "
+          f"term {roof.memory_s * 1e3:.3f} ms ({roof.bound}-bound) against "
+          f"{step_ms:.3f} ms measured (CUDA events, 3 steps)")
+    if abs(arg_card - arg_pred) > 0.01 * arg_pred:
+        raise AssertionError(f"{what}: argument bytes {arg_card} on the card "
+                             f"against {arg_pred} predicted")
+    ratio = peak / pred["peak_bytes"]
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"{what}: measured peak x{ratio:.3f} the "
+                             f"prediction, outside {PEAK_BAND}")
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def stdout_of(fn, argv: list) -> str:
+    """``fn(argv)``'s standard output, printed here as well."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    print(buf.getvalue(), end="")
+    return buf.getvalue()
+
+
+def examples_on_card() -> None:
+    """(c): each twin's ``main`` with its defaults (the card)."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = quickstart.main([])
+    counts = launch_counts()
+    if counts["digc_topk"] < 1 or counts["mrconv"]:
+        raise AssertionError(f"quickstart launched {fired(counts)}")
+    print(f"quickstart: the cuda tier's lists pass the near-tie rule against "
+          f"blocked ({out['swaps']} swaps); launches {fired(counts)}; "
+          f"{time.perf_counter() - t0:.2f} s (host clock)")
+    for name, fn, check in (
+            ("nan_smoke", nan_smoke.main, "NAN_SMOKE_OK"),
+            ("serve_lm", ex_serve_lm.main, "72 tokens"),
+            ("serve_trace", ex_serve_trace.main, "retuned bucket set"),
+            ("knn_attention_longctx", knn_attention_longctx.main, "CUDA events")):
+        t0 = time.perf_counter()
+        text = stdout_of(fn, [])
+        if check not in text:
+            raise AssertionError(f"{name}: no {check!r} in its output")
+        print(f"{name}: {time.perf_counter() - t0:.2f} s (host clock)")
+
+
+def shim_call(forward, images) -> tuple:
+    """``forward(images)``, recording each DIGC call's features and served
+    lists (``models.vig.digc`` patched); returns (logits, the calls'
+    (h, cond, spec, idx))."""
+    log: list = []
+    real = vig.digc
+
+    def record(h, cond=None, *, spec, **kw):
+        idx = real(h, cond, spec=spec, **kw)
+        log.append((h, cond, spec, idx))
+        return idx
+
+    vig.digc = record
+    try:
+        return forward(images), log
+    finally:
+        vig.digc = real
+
+
+def layer_recalls(log: list, exact=digc_topk_cuda) -> list:
+    """Each recorded call's lists against the exact top-k (``exact``: the
+    cuda kernel, or its plain version on the CPU)."""
+    return [neighbour_recall(idx, exact(
+        h, h if cond is None else cond, spec.k * spec.dilation)[1][..., ::spec.dilation])
+        for h, cond, spec, idx in log]
+
+
+def shim_calls(eng, params, cfg, exact) -> list:
+    """The shim's calls (``SHIM_BATCHES``) on ``eng``: per call (logits,
+    launches during ``infer``, warm-started recall, a cache-free
+    forward's logits and recall); each call bit for bit
+    ``vig_forward(cache=)`` on a mirror cache."""
+    mirror = DigcCache()
+    out = []
+    for i, b in enumerate(SHIM_BATCHES):
+        images = torch.from_numpy(testing.images(2800 + i, b, cfg.image_size)).to(
+            eng.device)
+        reset_launch_counts()
+        warm, log = shim_call(eng.infer, images)
+        counts = launch_counts()
+        with torch.inference_mode():
+            direct = vig.vig_forward(params, images, cfg, digc_impl=eng.spec,
+                                     cache=mirror)
+            cold, cold_log = shim_call(lambda im: vig.vig_forward(
+                params, im, cfg, digc_impl=eng.spec), images)
+            r_warm, r_cold = layer_recalls(log, exact), layer_recalls(cold_log, exact)
+        if not torch.equal(warm, direct):
+            raise AssertionError(f"{eng.device}, call {i}: the shim differs from "
+                                 f"vig_forward(cache=) by "
+                                 f"{float((warm - direct).abs().max())}")
+        if not torch.isfinite(warm).all():
+            raise AssertionError(f"{eng.device}, call {i}: logits not finite")
+        out.append((warm, counts, float(np.mean(r_warm)), cold, float(np.mean(r_cold))))
+    if eng.stats()["digc_cache"] != mirror.stats():
+        raise AssertionError(f"{eng.device}: digc_cache {eng.stats()['digc_cache']}, "
+                             f"mirror {mirror.stats()}")
+    return out
+
+
+def eager_cache_shim() -> None:
+    """(d): ``VigServeEngine(mode="eager", digc_impl="cluster")`` at full
+    width on the card and on the host's CPU: its cache's hits and misses,
+    each call's recall against the exact lists, beside cache-free
+    forwards."""
+    cfg = vig.VIG_VARIANTS["vig_ti_iso"]
+    runs = {}
+    for dev in (DEV, torch.device("cpu")):
+        params = convert.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                     device=dev)
+        eng = VigServeEngine(cfg, params, digc_impl="cluster", mode="eager",
+                             device=dev)
+        exact = digc_topk_cuda if dev.type == "cuda" else digc_topk_plain
+        calls = shim_calls(eng, params, cfg, exact)
+        runs[dev.type] = (eng.stats()["digc_cache"], calls)
+    (stats, card), (cpu_stats, cpu) = runs[DEV.type], runs["cpu"]
+    # one key per batch size (one stage): its first block misses, the
+    # rest of the call and every later call of that size hit
+    depth = sum(cfg.depths)
+    sizes = set(SHIM_BATCHES)
+    want = {"entries": len(sizes), "misses": len(sizes),
+            "hits": depth * len(SHIM_BATCHES) - len(sizes)}
+    if stats != want or cpu_stats != want:
+        raise AssertionError(f"digc_cache {stats} (CPU {cpu_stats}), expected {want}")
+    for i, ((warm, counts, rw, cold, rc), (_, _, cpu_rw, _, cpu_rc)) in enumerate(
+            zip(card, cpu)):
+        gap = float((warm - cold).abs().max() / cold.abs().max())
+        print(f"eager shim, call {i} (B = {SHIM_BATCHES[i]}): mean recall against the "
+              f"exact lists {rw:.4f} warm-started, {rc:.4f} cache-free (the CPU: "
+              f"{cpu_rw:.4f}, {cpu_rc:.4f}); logit gap to the cache-free call "
+              f"{gap:.4f} of its largest; launches {fired(counts) or 'none'}")
+        if fired(counts):
+            raise AssertionError(f"call {i}: the shim launched {fired(counts)}")
+    for j, what in ((2, "warm-started"), (4, "cache-free")):
+        mean_card = float(np.mean([row[j] for row in card]))
+        mean_cpu = float(np.mean([row[j] for row in cpu]))
+        print(f"mean recall over the calls, {what}: {mean_card:.4f} on the card, "
+              f"{mean_cpu:.4f} on the CPU")
+        if abs(mean_card - mean_cpu) > SHIM_RECALL_SLACK:
+            raise AssertionError(f"{what} recall {mean_card:.4f} on the card "
+                                 f"against {mean_cpu:.4f} on the CPU")
+    print(f"VigServeEngine(mode='eager', digc_impl='cluster') at full width: "
+          f"stats()['digc_cache'] = {stats} on the card and the CPU, every call "
+          "bit for bit vig_forward(cache=), no kernel launched")
+
+
+def dryrun_and_examples(smi: str) -> None:
+    t_phase = time.perf_counter()
+    phase("28. the dry-run tooling and the examples on the card")
+    dryrun_grid()
+    cfg = lm_configs.get_config("olmo-1b")
+    for kind, seq, batch in ANALYZED_STEPS:
+        analyzed_step(cfg, kind, seq, batch, smi)
+    examples_on_card()
+    eager_cache_shim()
+    print(f"phase 28 wall time: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     name, smi = card_and_software()
     build()
@@ -4254,6 +4546,7 @@ def main() -> None:
     encdec_serving()
     training()
     ring_and_mesh()
+    dryrun_and_examples(smi)
     # The summary row of each kernel is at the serving shape: vig_ti_iso
     # at B = 8 (N = M = 196, D = 192), with its middle kd for DIGC; the
     # causal variant's at the KNN attention shape. Launches are those of

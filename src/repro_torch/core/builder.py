@@ -140,7 +140,9 @@ class GraphBuilder:
     live co-nodes), builders with ``supports_state`` take
     ``state_entry=`` (a ``core.state.DigcStateEntry``) and then return
     ``(idx, dist, new_entry)``; for every other builder ``digc()`` passes
-    the state through unchanged. ``exact`` is False for an approximate
+    the state through unchanged. Builders with ``supports_cache`` take
+    ``cache=`` (a ``core.engine.DigcCache``) and ``cache_key=``, the
+    legacy eager cache. ``exact`` is False for an approximate
     tier (``cluster``, ``axial``). ``distributed`` marks a builder that
     needs a mesh (``ring``). ``aggregate`` is an optional fused
     neighbour aggregation (x, y, idx) -> (B, N, D); None means
@@ -155,6 +157,7 @@ class GraphBuilder:
     exact: bool = True
     supports_pad: bool = False
     supports_state: bool = False
+    supports_cache: bool = False
     distributed: bool = False
     aggregate: Optional[Callable] = None
     doc: str = ""

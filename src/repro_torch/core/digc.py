@@ -370,6 +370,8 @@ def digc(
     fault_plan=None,
     refresh: Optional[RefreshFork] = None,
     m_valid: Optional[torch.Tensor] = None,
+    cache=None,
+    cache_key=None,
     **knobs,
 ):
     """Public DIGC API: a GraphBuilder-registry lookup.
@@ -393,6 +395,12 @@ def digc(
     ``overlap`` policy's refresh build onto the card's side stream: call
     ``refresh.join()`` before reading the returned state.
 
+    ``cache`` / ``cache_key`` (a ``core.engine.DigcCache`` and the
+    caller's key) are the legacy eager cache: a builder with
+    ``supports_cache`` warm-starts from it and writes back (bypassed while
+    a CUDA graph is being captured); others ignore it. Either ``state`` or
+    ``cache``, not both.
+
     ``fault_plan`` (a ``core.faults.FaultPlan``) passes the node features
     through the plan's ``digc.x`` site before construction: a no-op when
     None, and bypassed while the stream is capturing a CUDA graph.
@@ -414,12 +422,18 @@ def digc(
     x3, y3, p3, squeeze = promote_batch(x, y, pos_bias)
     y_arg = None if y is None else y3
     kw = {} if m_valid is None else {"m_valid": m_valid}
+    if state is not None and cache is not None:
+        raise ValueError("digc() takes either functional state= or the "
+                         "legacy eager cache=, not both")
     entry = state.get(state_key) if state is not None else None
     if entry is not None and builder.supports_state:
         idx, dist, new_entry = _reuse_build(
             builder, x3, y_arg, p3, spec, entry, reuse_first=reuse_first,
             m_valid=m_valid, refresh=refresh)
         state = state.set(state_key, new_entry)
+    elif cache is not None and builder.supports_cache:
+        idx, dist = builder.build(x3, y_arg, p3, spec, cache=cache,
+                                  cache_key=cache_key, **kw)
     else:
         idx, dist = builder.build(x3, y_arg, p3, spec, **kw)
     if squeeze:

@@ -25,13 +25,19 @@ into the product as [-2x, 1, ||x||^2] . [y, ||y||^2, 1] (another fp32
 summation order, so tie-tolerant); ``mxu_bf16`` rounds the product's
 operands to bf16 and multiplies the rounded values in fp32, keeping the
 norms from the fp32 inputs. ``m_valid`` and the padding of the last
-co-node tile are masked through the norm term (BIG). The JAX package's
-``DigcCache`` (its legacy eager cache) is not ported.
+co-node tile are masked through the norm term (BIG).
+
+``DigcCache`` is the legacy eager cache: host-side construction state
+(co-node norms, cluster centroids) keyed by (kind, caller key), read and
+written only outside CUDA-graph capture. The functional
+``core.state.DigcState`` supersedes it; ``VigServeEngine(mode="eager")``
+engages it for a tier with ``supports_cache``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -242,3 +248,70 @@ def stream_topk(
         return parts[0]
     return (torch.cat([p[0] for p in parts], 1),
             torch.cat([p[1] for p in parts], 1))
+
+
+# ---------------------------------------------------------------------------
+# Cross-layer / cross-request cache
+
+
+@dataclasses.dataclass
+class DigcCache:
+    """Host-side cache of reusable graph-construction state: the legacy
+    eager shim (new code threads the functional ``DigcState``).
+
+    Holds co-node squared norms (serving a fixed gallery), cluster
+    centroids (layer-to-layer and request-to-request k-means warm starts)
+    and other builder state, keyed by (kind, caller key). Entries are read
+    and written only for tensors with values: while a CUDA graph is being
+    captured (and for ``meta`` tensors) the cache is bypassed, since a
+    value read then would be baked into the graph as a stale constant.
+    """
+
+    max_entries: int = 256
+    _store: dict = dataclasses.field(default_factory=dict)
+    hits: int = 0
+    misses: int = 0
+
+    @staticmethod
+    def usable(*tensors: torch.Tensor) -> bool:
+        """False while any tensor's stream captures a CUDA graph, or for
+        a tensor without values (``meta``)."""
+        return not any(
+            t.device.type == "meta"
+            or (t.is_cuda and torch.cuda.is_current_stream_capturing())
+            for t in tensors)
+
+    def get(self, kind: str, key: Any):
+        entry = self._store.get((kind, key))
+        if entry is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return entry
+
+    def put(self, kind: str, key: Any, value: torch.Tensor) -> None:
+        if not self.usable(value):
+            return
+        if len(self._store) >= self.max_entries:
+            self._store.pop(next(iter(self._store)))
+        self._store[(kind, key)] = value
+
+    def norms(self, key: Any, y: torch.Tensor) -> torch.Tensor:
+        """||y||^2 of a co-node set identified by ``key``, which must name
+        its contents (e.g. a gallery version tag): shapes alone are not
+        enough."""
+        if not self.usable(y):
+            return y.float().square().sum(-1)
+        cached = self.get("sq_y", key)
+        if cached is not None and tuple(cached.shape) == tuple(y.shape[:-1]):
+            return cached
+        sq = y.float().square().sum(-1)
+        self.put("sq_y", key, sq)
+        return sq
+
+    def stats(self) -> dict:
+        return {"entries": len(self._store), "hits": self.hits,
+                "misses": self.misses}
+
+    def clear(self) -> None:
+        self._store.clear()

@@ -386,13 +386,32 @@ def _cluster_kw(spec: DigcSpec) -> dict:
     )
 
 
-def _build_cluster(x, y, pos_bias, spec: DigcSpec, state_entry=None):
-    # No eager ``cache=`` here: the JAX package's DigcCache warm start is
-    # not ported (the functional state carries the centroids).
+def _build_cluster(x, y, pos_bias, spec: DigcSpec, state_entry=None,
+                   cache=None, cache_key=None):
     del pos_bias  # validated unsupported upstream
     if state_entry is not None:
         return _build_cluster_stateful(x, y, spec, state_entry)
-    return cluster_digc(x, y, **_cluster_kw(spec))
+    init = ckey = None
+    if cache is not None and cache_key is not None:
+        # An explicit key: two unrelated callers sharing a cache with
+        # matching shapes must not warm-start from each other's centroids.
+        from repro_torch.core.engine import DigcCache
+
+        if DigcCache.usable(x) and (y is None or DigcCache.usable(y)):
+            m = y.shape[1] if y is not None else x.shape[1]
+            ckey = (cache_key, x.shape[0], m, x.shape[-1])
+            init = cache.get("cluster_centroids", ckey)
+    if ckey is None:
+        return cluster_digc(x, y, **_cluster_kw(spec))
+    # Warm starts take 2 Lloyd iterations, as JAX's: its rationale is that
+    # features drift slowly layer to layer. With random weights they do
+    # not, and a full-width ViG loses recall in both packages
+    # (tools/cache_warm_recall.py).
+    idx, dist, st = cluster_digc(
+        x, y, kmeans_iters=2 if init is not None else 5, init_centroids=init,
+        return_state=True, **_cluster_kw(spec))
+    cache.put("cluster_centroids", ckey, st["centroids"])
+    return idx, dist
 
 
 def _build_cluster_stateful(x, y, spec: DigcSpec, entry):
@@ -445,9 +464,11 @@ register(GraphBuilder(
     knobs=frozenset({"n_clusters", "n_probe", "capacity_factor", "seed"})
     | REUSE_KNOBS,
     exact=False,
+    supports_cache=True,  # the legacy eager DigcCache's warm starts
     supports_state=True,  # centroid warm starts through DigcState
     doc="ClusterViG-family IVF search: k-means index (shared co-nodes "
-        "indexed once, DigcState warm starts) + dispatch-form probe",
+        "indexed once, DigcState/DigcCache warm starts) + dispatch-form "
+        "probe",
 ))
 
 register(GraphBuilder(

@@ -12,6 +12,10 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
     Raises when a CUDA device is asked for on a host without one: the
     CPU path runs only when the caller asks for it with ``device="cpu"``.
+    ``device="meta"`` builds shapes and dtypes only (no storage), the
+    port's counterpart of ``jax.eval_shape``: the dry-run
+    (``launch/dryrun.py``) traces full-size steps that way. No kernel
+    runs on a meta tensor (``runs_kernel`` raises).
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -19,8 +23,9 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             f"device={str(device)!r} but no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch path"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(device)!r}: use cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(
+            f"unsupported device {str(device)!r}: use cuda, cpu or meta")
     return dev
 
 

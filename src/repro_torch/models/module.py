@@ -5,6 +5,9 @@ Models declare their parameters as a nested dict of ``ParamSpec`` leaves
 materializes one tree of tensors with the same structure, empty
 sub-dicts included (a non-parametric norm's ``{}``).
 
+``abstract_params`` gives the same tree as ``meta`` tensors (shapes and
+dtypes, no storage): the dry-run traces full-size steps on them.
+
 The sharding half maps logical axis names to mesh axes by a rules dict
 (MaxText-style, JAX's ``DEFAULT_RULES``): ``make_shardings`` gives each
 leaf a ``Sharding(mesh, spec)`` record whose ``spec`` is a tuple with the
@@ -121,6 +124,13 @@ def init_params(spec_tree: Mapping, *, generator: torch.Generator,
     return map_tree(lambda path, _: drawn[path].to(dev), spec_tree)
 
 
+def abstract_params(spec_tree: Mapping) -> dict:
+    """Each ``ParamSpec`` as a ``meta`` tensor of its shape and dtype (the
+    counterpart of JAX's ``ShapeDtypeStruct`` tree)."""
+    return map_tree(lambda _, s: torch.empty(s.shape, dtype=s.dtype,
+                                             device="meta"), spec_tree)
+
+
 # ---------------------------------------------------------------------------
 # Sharding rules
 
@@ -162,6 +172,23 @@ class Sharding(NamedTuple):
 
     mesh: Any
     spec: tuple
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """One device's block of an array of ``shape`` (JAX's
+        ``NamedSharding.shard_shape``); raises where the mesh axes of a
+        dimension do not divide it."""
+        entries = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        out = []
+        for dim, entry in zip(shape, entries):
+            axes = () if entry is None else (
+                (entry,) if isinstance(entry, str) else tuple(entry))
+            ways = math.prod(self.mesh.shape[a] for a in axes)
+            if dim % ways:
+                raise ValueError(
+                    f"dimension {dim} of {tuple(shape)} is not divisible by "
+                    f"the {ways} devices of mesh axes {axes}")
+            out.append(dim // ways)
+        return tuple(out)
 
 
 def rules_for(cfg) -> dict:

@@ -18,7 +18,10 @@ policy, serves its graph). The forward serves any square grid that
 ``vig_stage_plans`` accepts (the positional embedding is resampled as
 ``jax.image.resize`` does, ``_pos_for_grid``), and ``valid_mask`` keeps
 zero-padded pad nodes out of every top-k and the mean pooling.
-``vig_loss_fn`` is the training loss. Not ported: the eager cache.
+``vig_loss_fn`` is the training loss. ``vig_forward(cache=)`` takes the
+legacy eager ``core.engine.DigcCache`` instead of a state (blocks of a
+stage share the stage's key): a ``supports_cache`` tier warm-starts from
+it across blocks and calls.
 """
 
 from __future__ import annotations
@@ -337,7 +340,8 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
                   state: Optional[DigcState] = None,
                   reuse_first: bool = True,
                   digc_capture: Optional[list] = None,
-                  m_valid: Optional[torch.Tensor] = None):
+                  m_valid: Optional[torch.Tensor] = None,
+                  cache=None):
     """x (B, N, D) -> ((B, N, D), state); one Grapher + FFN residual pair.
 
     ``state`` (a ``DigcState`` keyed by ``layer_key``) is threaded
@@ -348,7 +352,8 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
     for a self-graph) it was given. ``m_valid`` ((N,) or (B, N) bool)
     marks live nodes when the batch carries pad nodes: DIGC masks the pad
     co-nodes out of every top-k (self-graph stages only; ``vig_forward``
-    screens that).
+    screens that). ``cache`` (a ``DigcCache``, used when ``state`` is
+    None) is the legacy eager cache, keyed by ``layer_key``.
     """
     dspec = digc_spec if digc_spec is not None else resolve_digc_spec(cfg, None)
     h = _ln(x, bp["ln_g"]["scale"])
@@ -373,7 +378,8 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
                               state_key=layer_key, reuse_first=reuse_first,
                               refresh=refresh, m_valid=m_valid)
         else:
-            idx = digc(h, cond, spec=dspec, m_valid=m_valid)  # (B, N, k) int32
+            idx = digc(h, cond, spec=dspec, m_valid=m_valid, cache=cache,
+                       cache_key=layer_key)  # (B, N, k) int32
     aggregate = builder.aggregate if builder.aggregate is not None else mr_aggregate
     agg = aggregate(h, cond if cond is not None else h, idx)
     h = torch.cat([h, agg], dim=-1) @ bp["fc_graph"]
@@ -389,7 +395,7 @@ def grapher_block(bp: dict, x: torch.Tensor, cfg: VigConfig, grid: int,
 def run_stage(stage_params: dict, x: torch.Tensor, cfg: VigConfig,
               plan: StagePlan, *, state: Optional[DigcState] = None,
               digc_capture: Optional[list] = None,
-              m_valid: Optional[torch.Tensor] = None):
+              m_valid: Optional[torch.Tensor] = None, cache=None):
     """Run one pipeline stage: ``plan.depth`` Grapher+FFN blocks sharing
     the stage's state key. Returns ``(x, state)``."""
     for bi in range(plan.depth):
@@ -397,7 +403,7 @@ def run_stage(stage_params: dict, x: torch.Tensor, cfg: VigConfig,
             stage_params[f"block{bi}"], x, cfg, plan.grid, plan.r,
             plan.dilations[bi], digc_spec=plan.spec, layer_key=plan.key,
             state=state, reuse_first=(bi == 0), digc_capture=digc_capture,
-            m_valid=m_valid,
+            m_valid=m_valid, cache=cache,
         )
     return x, state
 
@@ -406,9 +412,12 @@ def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
                 digc_impl: DigcChoice = None,
                 state: Optional[DigcState] = None,
                 digc_capture: Optional[list] = None,
-                valid_mask: Optional[torch.Tensor] = None):
+                valid_mask: Optional[torch.Tensor] = None,
+                cache=None):
     """images (B, H, W, C) -> class logits (B, num_classes), or
-    ``(logits, new_state)`` when ``state`` is given.
+    ``(logits, new_state)`` when ``state`` is given. ``cache`` (a
+    ``core.engine.DigcCache``) is the legacy eager cache, the other way to
+    carry construction state; it returns logits only.
 
     patchify -> stem + positional embedding -> per stage, Grapher blocks
     -> 2x2 downsample between stages -> mean pool -> head. Runs on the
@@ -458,7 +467,8 @@ def vig_forward(params: dict, images: torch.Tensor, cfg: VigConfig, *,
     x = x + _pos_for_grid(params["pos"], cfg.base_grid, grid0)
     for plan in plans:
         x, state = run_stage(params[plan.key], x, cfg, plan, state=state,
-                             digc_capture=digc_capture, m_valid=mask)
+                             digc_capture=digc_capture, m_valid=mask,
+                             cache=cache)
         if plan.index + 1 < len(cfg.depths):
             x = _downsample(x, plan.grid, params[f"down{plan.index}"])
     if mask is None:

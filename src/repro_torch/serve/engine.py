@@ -58,7 +58,11 @@ next tick. ``slo_ms=0`` (the default) is the bind-on-next-tick engine.
 
 Each bucket (or lattice cell) has one program, the counterpart of the JAX
 engine's jitted program (``mode="jit"``; ``mode="eager"`` makes the
-request path raise, as in JAX). On a card the program is captured as one
+request path raise, as in JAX, and is the legacy shim of the direct path:
+on a tier with ``supports_cache`` (``cluster``) ``infer`` runs the forward
+through the engine's host-side ``DigcCache``, warm-starting across layers
+and calls and reported in ``stats()["digc_cache"]``; every other tier
+serves as in ``mode="jit"``). On a card the program is captured as one
 ``torch.cuda.CUDAGraph``: a cell's first tick is served eagerly on the
 capture stream (the capture's warm-up) and then captured from static
 buffers (the cell's device image buffer, filled from a pinned staging
@@ -121,6 +125,7 @@ import torch
 
 from repro_torch.core.builder import degraded_spec, fallback_chain, get_builder
 from repro_torch.core.digc import gate_reads
+from repro_torch.core.engine import DigcCache
 from repro_torch.core.faults import FaultError, FaultInfo
 from repro_torch.core.state import FIELDS, DigcState, prefetch_park_rows
 from repro_torch.core.tuner import DigcTuner, VigSchedule, optimal_bucket_set
@@ -313,7 +318,8 @@ class VigServeEngine:
     caps the programs ``retune_buckets()`` may choose. ``park_capacity``
     bounds the evicted tenants whose state rows are parked (0: an evicted
     tenant returns cold). ``mode`` is "jit" (cell programs, captured on a
-    card) or "eager" (the request path raises, as in JAX).
+    card) or "eager" (the request path raises, as in JAX; ``infer`` on a
+    ``supports_cache`` tier runs through the eager ``DigcCache``).
 
     Admission: ``slo_ms`` (0, a scalar or ``{class: ms}``) arms the
     scheduler, ``clock`` is its time source (None: ``time.monotonic``),
@@ -395,6 +401,7 @@ class VigServeEngine:
         self.tuned = None  # per-stage TuneResults once warmed up
         # direct path: batch size -> [program, DigcState]
         self._direct: dict[int, list] = {}
+        self.cache = DigcCache()  # engaged by the eager shim only
         # schedules, programs, captures and staging buffers are keyed by
         # the cell (``_program_key``): the bare bucket on a single-size
         # engine, (size, bucket) on the lattice, (size, bucket, "pad") for
@@ -682,6 +689,14 @@ class VigServeEngine:
             self.warmup()
         imgs = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         b = int(imgs.shape[0])
+        if self.mode == "eager" and get_builder(self.spec.impl).supports_cache:
+            # The legacy shim: the host-side cache carries the warm starts
+            # across layers and calls.
+            with torch.inference_mode():
+                logits = vig_forward(self.params, imgs, self.cfg,
+                                     digc_impl=self.spec, cache=self.cache)
+            self.requests_served += b
+            return logits
         if b not in self._direct:
             choice = self._impl_choice()
             self._direct[b] = [self._forward(choice), init_vig_state(
@@ -1616,6 +1631,7 @@ class VigServeEngine:
             "graph_reuses": self.graph_reuses,
             "graph_rebuilds": self.graph_rebuilds,
             "gate_reads": self.gate_reads,
+            "digc_cache": self.cache.stats(),
             # fault tolerance (DESIGN.md §11)
             "guards": self.guards,
             "quarantines": self.quarantines,
