@@ -5,9 +5,11 @@ sources at once, and the objects are linked into one shared library with
 a plain C interface that ``ctypes`` loads. No source includes PyTorch's
 headers, which keeps the build short. The library is built once per
 process, at first use, into ``build/repro_torch/`` at the root of the
-checkout; a failed build raises with nvcc's messages. ``build`` takes
-another source directory (an earlier commit's, to compare two builds in
-one process), and the wrappers launch that build inside ``use``.
+checkout (a ``kernels.build`` span, kept for the life of the process, from
+which ``build_seconds`` is read); a failed build raises with nvcc's
+messages. ``build`` takes another source directory (an earlier commit's,
+to compare two builds in one process), and the wrappers launch that build
+inside ``use``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
+
+from repro_torch import spans
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -99,7 +102,7 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> KernelLibrary:
     of the sources in ``csrc``."""
     nvcc = nvcc_path()
     build_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
+    t0 = spans.now()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs, reports = _compile(nvcc, csrc, Path(tmp))
         so_tmp = Path(tmp) / LIB_NAME
@@ -112,7 +115,9 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> KernelLibrary:
         path = build_dir / LIB_NAME
         # Atomic: a process that loaded an earlier build keeps its copy.
         os.replace(so_tmp, path)
-    seconds = time.perf_counter() - t0
+    t1 = spans.now()
+    if spans.RECORDER.enabled:
+        spans.RECORDER.add("kernels.build", t0, t1, keep=True)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -120,7 +125,7 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> KernelLibrary:
         fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib=lib, path=path, build_seconds=seconds,
+    return KernelLibrary(lib=lib, path=path, build_seconds=(t1 - t0) / 1e9,
                          ptxas=reports)
 
 

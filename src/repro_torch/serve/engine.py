@@ -123,6 +123,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.builder import degraded_spec, fallback_chain, get_builder
 from repro_torch.core.digc import gate_reads
 from repro_torch.core.engine import DigcCache
@@ -300,6 +301,8 @@ class _Captured:
 
 
 DEFAULT_BUCKETS = (1, 2, 4, 8)
+# The attributes of an ``engine.step`` span (``spans.attr_dict``).
+STEP_ATTRS = ("bucket", "live", "syncs", "uids")
 
 
 class VigServeEngine:
@@ -713,7 +716,17 @@ class VigServeEngine:
         submitter, with an error naming the field. On the lattice an
         image of a configured size serves its own cell unmasked, and a
         ragged one is padded up to the smallest size that fits with a
-        live-node mask."""
+        live-node mask. Records an ``engine.submit`` span (id: the uid)."""
+        rec = spans.RECORDER
+        t0 = spans.now() if rec.enabled else 0
+        req._serve_size, req._serve_mask = self._serve_cell(req)
+        self._enqueue(req)
+        if rec.enabled:
+            rec.lap("engine.submit", t0, req.uid)
+
+    def _serve_cell(self, req: VigRequest) -> tuple:
+        """The (image size, live-node mask or None) a request serves at;
+        raises on a malformed image."""
         img = np.asarray(req.image)
         if not self._lattice:
             want = (self.cfg.image_size, self.cfg.image_size,
@@ -725,9 +738,7 @@ class VigServeEngine:
                     "image_size, in_chans)"
                 )
             _check_float(req, img)
-            req._serve_size, req._serve_mask = self.image_sizes[0], None
-            self._enqueue(req)
-            return
+            return self.image_sizes[0], None
         if img.ndim != 3:
             raise ValueError(
                 f"VigRequest.image (uid={req.uid}): expected a 3-d "
@@ -746,9 +757,7 @@ class VigServeEngine:
             )
         _check_float(req, img)
         if h in self.image_sizes:
-            req._serve_size, req._serve_mask = h, None
-            self._enqueue(req)
-            return
+            return h, None
         if h % self.cfg.patch:
             raise ValueError(
                 f"VigRequest.image (uid={req.uid}): size {h} is not "
@@ -766,8 +775,7 @@ class VigServeEngine:
         g, g0 = size // self.cfg.patch, h // self.cfg.patch
         mask2d = np.zeros((g, g), bool)
         mask2d[:g0, :g0] = True
-        req._serve_size, req._serve_mask = size, mask2d.reshape(-1)
-        self._enqueue(req)
+        return size, mask2d.reshape(-1)
 
     def _check_pad_capable(self, req: VigRequest, h: int) -> None:
         """Pad nodes need a single-stage r = 1 model (pooling and
@@ -1126,6 +1134,8 @@ class VigServeEngine:
         pin = self.device.type == "cuda"
         host = {size: st.take_rows([slot]).to("cpu", pin=pin)
                 for size, st in self._slot_states.items()}
+        if pin:
+            _count_sync(None, len(host))
         self._parked.pop(tenant, None)  # re-insert = most recent
         self._park_prefetch.pop(tenant, None)  # an upload of older rows
         self._parked[tenant] = (host if self._multi_size()
@@ -1253,8 +1263,9 @@ class VigServeEngine:
         last flush: one device -> host pull."""
         due = self._due(size)
         if due and size in self._slot_states:
-            self._adopt_tokens(size, due,
-                               self._slot_states[size].row_checks()[1].cpu())
+            sums = self._slot_states[size].row_checks()[1]
+            self._adopt_tokens(size, due, sums.cpu())
+            _count_sync(sums)
 
     def _adopt_tokens(self, size: int, slots: list, sums: torch.Tensor) -> None:
         """Take ``slots``' checksums at ``size`` from ``sums`` (every
@@ -1278,16 +1289,15 @@ class VigServeEngine:
             ready.record()
         return (*host, ready)
 
-    def _screened(self, picked: list, size: int, img_ok, finite, sums,
-                  ready) -> tuple:
-        """The screen's verdicts, once ``ready``: quarantine a lane whose
+    def _screened(self, picked: list, size: int, img_ok, finite,
+                  sums) -> tuple:
+        """The screen's verdicts, once its copies are on the host
+        (``step`` waits on its event): quarantine a lane whose
         image or state rows are not finite, serve cold (reset at ``size``)
         a lane whose rows' checksum no longer matches its token (rows
         never tokened are trusted, and rows the engine wrote since, take
         theirs now). Returns the healthy lanes' indices in ``picked`` and
         whether a healthy lane's rows were reset."""
-        if ready is not None:
-            ready.synchronize()
         keep, reset = [], False
         for i, (slot, req) in enumerate(picked):
             if not img_ok[i]:
@@ -1374,6 +1384,7 @@ class VigServeEngine:
             if new_e.graph_age is None or old_e is None or old_e.graph_age is None:
                 continue
             rebuilt = new_e.graph_age.cpu()[rows] == 0
+            _count_sync(new_e.graph_age, 3)  # the ages and both snapshots
             self.graph_rebuilds += int(rebuilt.sum())
             self.graph_reuses += int((~rebuilt).sum())
             old_snap = old_e.graph_snap.cpu()[rows]
@@ -1408,13 +1419,24 @@ class VigServeEngine:
         screen each lane, serve the healthy ones padded to a bucket.
         Returns the number of requests served (quarantined ones are done,
         with ``fault`` set); 0 when the scheduler defers (no device work,
-        ``_tick`` unchanged)."""
+        ``_tick`` unchanged, no span).
+
+        A tick records an ``engine.step`` span (id: the tick number;
+        attributes: the bucket, the live lanes, the served uids and the
+        tick's ``engine.syncs``) whose children tile it: ``engine.select``,
+        ``engine.stage``, ``engine.screen`` (its event wait in
+        ``engine.screen.wait``), ``engine.capture`` on a cell's first tick
+        else ``engine.replay``, ``engine.scatter``, ``engine.pull`` and
+        ``engine.account``."""
         if not self.queue:
             return 0
         if self.mode != "jit":
             raise RuntimeError(
                 "the multi-tenant request path serves through the cell "
                 "programs (CUDA graphs on a card); construct with mode='jit'")
+        rec = spans.RECORDER
+        on = rec.enabled
+        t = t_step = spans.now() if on else 0
         cell, eligible = self._select_cell()
         if cell is None:
             self.deferrals += 1
@@ -1422,6 +1444,10 @@ class VigServeEngine:
             return 0
         size, masked = cell
         self._tick += 1
+        tick = self._tick
+        if on:
+            sid = rec.open(t_step)
+            syncs = rec.counters.get(spans.SYNCS, 0)
         self.last_resets = []
         self.last_restores = []
         self.last_quarantined = []
@@ -1451,6 +1477,8 @@ class VigServeEngine:
         picked = sorted(((assigned[id(r)], r) for r in eligible
                          if id(r) in assigned), key=lambda sr: sr[0])
         self.queue = [r for r in self.queue if id(r) not in assigned]
+        if on:
+            t = rec.lap("engine.select", t, tick, sid)
 
         state = self._ensure_slot_state(size)
         # Fault site: an unsanctioned state mutation, adopted without
@@ -1483,15 +1511,33 @@ class VigServeEngine:
         a = len(lanes)
         bucket, key, images, mask, bucket_state = self._lanes(
             size, masked, imgs, masks, lanes)
+        if on:
+            t = rec.lap("engine.stage", t, tick, sid)
         healthy = picked
         if self.guards:
-            screen = self._screen(images[:a], size)
-            keep, reset = self._screened(picked, size, *screen)
+            if on:
+                scr = rec.open(t)
+            img_ok, finite, sums, ready = self._screen(images[:a], size)
+            if ready is not None:
+                if on:
+                    tw = spans.now()
+                ready.synchronize()
+                if on:
+                    rec.lap("engine.screen.wait", tw, tick, scr)
+                    rec.count(spans.SYNCS)
+            keep, reset = self._screened(picked, size, img_ok, finite, sums)
+            if on:
+                t = rec.lap("engine.screen", t, tick, sid, seq=scr)
             if not keep:
                 self.last_lanes = []
                 self.last_bucket = None
                 self.last_cell = None
                 self._prefetch_parked()
+                if on:
+                    t = rec.lap("engine.account", t, tick, sid)
+                    rec.add("engine.step", t_step, t, tick, seq=sid, attrs=(
+                        STEP_ATTRS, None, 0,
+                        rec.counters.get(spans.SYNCS, 0) - syncs))
                 return 0
             if len(keep) < a or reset:
                 # Quarantined lanes never reach the program and recovered
@@ -1503,19 +1549,29 @@ class VigServeEngine:
                 bucket, key, images, mask, bucket_state = self._lanes(
                     size, masked, [imgs[i] for i in keep],
                     [masks[i] for i in keep] if masked else [], lanes)
+                if on:
+                    t = rec.lap("engine.stage", t, tick, sid)
         self.last_lanes = list(lanes)
         self.last_bucket = bucket
         self.last_cell = (size, bucket)
         state = self._slot_states[size]
+        # The timed serve section, from here to the logits on the host:
+        # the program (built and captured on the cell's first tick), the
+        # scatter and the host sync that brings the logits back.
+        t_serve = t if on else spans.now()
+        first_tick = key not in self._program_ticks
         program = self._program_for(bucket, size, masked)
-        # The timed serve section: the program, the scatter and the host
-        # sync that brings the logits back.
-        t0 = time.perf_counter()
         self._fire("tick.serve", bucket=bucket)
         reads = gate_reads()
         logits, new_bucket_state = self._serve(key, program, images,
                                                bucket_state, mask)
-        self.gate_reads += gate_reads() - reads
+        reads = gate_reads() - reads
+        self.gate_reads += reads
+        if on:
+            if reads and logits.is_cuda:
+                rec.count(spans.SYNCS, reads)
+            t = rec.lap("engine.capture" if first_tick else "engine.replay",
+                        t, tick, sid, keep=first_tick)
         # Scatter the live lanes only: rows >= a (padding) are dropped.
         self._slot_states[size] = state.put_rows(new_bucket_state, lanes)
         # The written rows' new tokens ride the logits' transfer: their
@@ -1527,12 +1583,17 @@ class VigServeEngine:
         due = self._due(size)
         if due:
             sums = _to_host_async(self._slot_states[size].row_checks()[1])
+        if on:
+            t = rec.lap("engine.scatter", t, tick, sid)
         logits_np = logits[:a].cpu().numpy()  # host sync closes the tick
+        if on and logits.is_cuda:
+            rec.count(spans.SYNCS)
         if due:
             self._adopt_tokens(size, due, sums)
+        # The graph statistics' reads wait on the device too: in the pull.
         self._graph_stats_update(state, self._slot_states[size], lanes)
-        elapsed_ms = (time.perf_counter() - t0) * 1e3
-        first_tick = key not in self._program_ticks
+        t = rec.lap("engine.pull", t, tick, sid) if on else spans.now()
+        elapsed_ms = (t - t_serve) / 1e6
         self._program_ticks[key] = self._program_ticks.get(key, 0) + 1
         if self.deadline_ms is not None and not first_tick:
             # A program's first tick builds and captures it: never a
@@ -1569,6 +1630,11 @@ class VigServeEngine:
         self.padded_lanes += width - a
         self.lane_hist[(size, a)] = self.lane_hist.get((size, a), 0) + 1
         self._prefetch_parked()
+        if on:
+            t = rec.lap("engine.account", t, tick, sid)
+            rec.add("engine.step", t_step, t, tick, seq=sid, attrs=(
+                STEP_ATTRS, bucket, a, rec.counters.get(spans.SYNCS, 0) - syncs,
+                *[req.uid for _, req in healthy]))
         return a
 
     def run(self) -> list[VigRequest]:
@@ -1672,6 +1738,14 @@ def _check_float(req: VigRequest, img: np.ndarray) -> None:
 def _stage0_impl(choice) -> str:
     """The DIGC impl of a spec, or of a schedule's first stage."""
     return choice.spec_for(0).impl if hasattr(choice, "spec_for") else choice.impl
+
+
+def _count_sync(t: Optional[torch.Tensor], n: int = 1) -> None:
+    """Count ``n`` host waits on the card in ``engine.syncs``: reads of
+    ``t`` when it is on a card (None: the caller knows they were)."""
+    rec = spans.RECORDER
+    if rec.enabled and (t is None or t.is_cuda):
+        rec.count(spans.SYNCS, n)
 
 
 def _to_host_async(t: torch.Tensor) -> torch.Tensor:
