@@ -194,6 +194,18 @@ class DigcStateEntry:
             updates[f] = out
         return dataclasses.replace(self, **updates)
 
+    def reset_rows_at(self, index: torch.Tensor) -> "DigcStateEntry":
+        """``reset_rows`` at an int64 ``index`` already on the entry's
+        device, with no host round trip: ``index_fill_`` on the clones
+        takes its zero as a kernel argument, where ``out[idx] = 0`` copies
+        a scalar tensor to the card and waits for it. The same values."""
+        updates = {}
+        for f in ROW_FIELDS:
+            v = getattr(self, f)
+            if v is not None:
+                updates[f] = v.clone().index_fill_(0, index, 0)
+        return dataclasses.replace(self, **updates)
+
 
 def _row_host(entry: DigcStateEntry, f: str) -> Optional[np.ndarray]:
     v = getattr(entry, f)
@@ -344,6 +356,12 @@ class DigcState:
     def reset_rows(self, rows) -> "DigcState":
         """Cold-reset the given rows in every entry."""
         return DigcState(entries={k: e.reset_rows(rows)
+                                  for k, e in self.entries.items()})
+
+    def reset_rows_at(self, index: torch.Tensor) -> "DigcState":
+        """``reset_rows`` in every entry at a device index
+        (``DigcStateEntry.reset_rows_at``)."""
+        return DigcState(entries={k: e.reset_rows_at(index)
                                   for k, e in self.entries.items()})
 
     # -- integrity guards -----------------------------------------------

@@ -31,7 +31,15 @@ slot bound to a new tenant is cold-reset first; an LRU-evicted tenant's
 rows are parked in host memory (at most ``park_capacity`` tenants, the
 oldest copy dropped first) and restored when it returns. ``release()``
 drops a tenant and its parked copy. The ``cuda`` tier is stateless: its
-state rows pass through unchanged.
+program passes its state through, and the tick scatters nothing back.
+
+The row lifecycle makes no host round trip: a tick writes its rows (the
+padded lanes, then the slots admission bound cold) into one pinned host
+buffer, copies it to the card once without waiting, and the tick's
+gather, scatter and admission resets at every size index with that one
+device tensor; admission's cold resets are applied together, once per
+entry. Resets and restores off the tick (release, quarantine, recovery,
+unparking) index one slot with a tensor filled on the device.
 
 The multi-resolution lattice (``image_sizes=``, DESIGN.md §13): each
 configured image size is an N-bucket with its own per-slot state
@@ -301,6 +309,8 @@ class _Captured:
 
 
 DEFAULT_BUCKETS = (1, 2, 4, 8)
+ROW_COUNTERS = (spans.ROWS_RESET, spans.ROW_INDEX_UPLOADS,
+                spans.SCATTER_SKIPPED)
 # The attributes of an ``engine.step`` span (``spans.attr_dict``).
 STEP_ATTRS = ("bucket", "live", "syncs", "uids")
 
@@ -494,6 +504,13 @@ class VigServeEngine:
         self._tokens_due: set[tuple] = set()
         self._consecutive_misses = 0
         self._program_ticks: dict[Any, int] = {}  # cell -> ticks served
+        # The tick's row index: a pinned host buffer and its device copy
+        # (on a card), made on first use, and whether a copy from the
+        # host buffer may still be in flight (no host sync since).
+        self._rows_host: Optional[torch.Tensor] = None
+        self._rows_dev: Optional[torch.Tensor] = None
+        self._rows_in_flight = False
+        self.row_counts = dict.fromkeys(ROW_COUNTERS, 0)
 
     # -- the lattice (DESIGN.md §13) --------------------------------------
 
@@ -1103,13 +1120,20 @@ class VigServeEngine:
                 grid=size // self.cfg.patch, device=self.device)
         return self._slot_states[size]
 
-    def _reset_rows_all(self, slots) -> None:
-        """Cold-reset ``slots``' rows at every allocated size (a slot's
+    def _slot_index(self, slot: int) -> torch.Tensor:
+        """One slot's row index, made on the device (a fill: no host copy
+        and no wait), for the resets and restores off a tick's staged
+        index."""
+        return torch.full((1,), slot, dtype=torch.long, device=self.device)
+
+    def _reset_slot(self, slot: int) -> None:
+        """Cold-reset ``slot``'s rows at every allocated size (a slot's
         occupant changes for every resolution at once); their tokens fall
         due."""
+        index = self._slot_index(slot)
         for size, st in self._slot_states.items():
-            self._slot_states[size] = st.reset_rows(list(slots))
-        self._refresh_tokens(slots)
+            self._slot_states[size] = st.reset_rows_at(index)
+        self._refresh_tokens([slot])
 
     def release(self, tenant: Any) -> None:
         """Tenant disconnect: free its slot and cold-reset the rows, so the
@@ -1122,7 +1146,7 @@ class VigServeEngine:
             return
         self.slot_tenant[slot] = None
         if self._slot_states:
-            self._reset_rows_all([slot])
+            self._reset_slot(slot)
 
     def _park(self, tenant: Any, slot: int) -> None:
         """Copy an evicted tenant's rows at every allocated size to host
@@ -1180,13 +1204,14 @@ class VigServeEngine:
             host = prefetched[1]
             self.prefetch_hits += 1
         per_size = host if self._multi_size() else {self.image_sizes[0]: host}
+        index = self._slot_index(slot)
         for size, st in self._slot_states.items():
             if size not in per_size:
-                self._slot_states[size] = st.reset_rows([slot])
+                self._slot_states[size] = st.reset_rows_at(index)
         for size, rows in per_size.items():
             state = self._ensure_slot_state(size)
             self._slot_states[size] = DigcState(entries={
-                k: dataclasses.replace(e.put_rows(rows.entries[k], [slot]),
+                k: dataclasses.replace(e.put_rows(rows.entries[k], index),
                                        step=e.step)
                 for k, e in state.entries.items()
             })
@@ -1198,7 +1223,10 @@ class VigServeEngine:
         """Bind a new tenant to a free slot, else the least recently used
         slot not serving this tick (its tenant's rows are parked first);
         None when every slot is busy. The slot's rows are restored from
-        the tenant's parked copy, else cold-reset."""
+        the tenant's parked copy at once, else the slot joins
+        ``last_resets``, which the tick cold-resets in one batch after
+        admission (``_reset_cold``): a later eviction in the same tick
+        parks another slot, whose rows no reset has touched."""
         free = [s for s in range(self.slots)
                 if self.slot_tenant[s] is None and s not in used]
         if free:
@@ -1216,8 +1244,7 @@ class VigServeEngine:
         if self._unpark(tenant_key, slot):
             self.last_restores.append(slot)
         else:
-            if self._slot_states:
-                self._reset_rows_all([slot])
+            self._refresh_tokens([slot])
             self.last_resets.append(slot)
         return slot
 
@@ -1321,8 +1348,8 @@ class VigServeEngine:
             elif self._row_tokens[tk] != token:
                 # Finite but token-mismatched rows (silent corruption):
                 # serve this request cold.
-                self._slot_states[size] = self._slot_states[size].reset_rows(
-                    [slot])
+                self._slot_states[size] = self._slot_states[
+                    size].reset_rows_at(self._slot_index(slot))
                 self._refresh_tokens([slot], size)
                 self.state_resets += 1
                 self.fault_log.append(FaultInfo(
@@ -1348,7 +1375,7 @@ class VigServeEngine:
         self.fault_log.append(info)
         self.last_quarantined.append(slot)
         if self._slot_states:
-            self._reset_rows_all([slot])
+            self._reset_slot(slot)
             self.state_resets += 1
         self._slot_last_tick[slot] = self._tick
         if req.tenant is None:
@@ -1399,11 +1426,72 @@ class VigServeEngine:
 
     # -- the tick -------------------------------------------------------
 
+    def _count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the row counter ``name`` (``stats()``) and, on a
+        card, to the recorder's (which, as for ``engine.syncs``, counts
+        what the card was asked to do)."""
+        self.row_counts[name] += n
+        rec = spans.RECORDER
+        if rec.enabled and self.device.type == "cuda":
+            rec.count(name, n)
+
+    def _row_index(self, lanes: list, resets: list = ()) -> tuple:
+        """The tick's row indices on the device, from one host -> device
+        copy: ``lanes`` padded to the tick's width by replicating lane 0
+        (the rows the program serves), then ``resets`` (the slots to
+        cold-reset). On a card the ids go through one pinned buffer,
+        allocated once, and are copied without waiting; the buffer is
+        rewritten only once a host sync has ordered past its last copy
+        (the screen's event or the last tick's logits pull; a tick that
+        raised before either leaves the stream to be synchronized
+        here)."""
+        pad = self._tick_width(self.bucket_for(len(lanes))) - len(lanes)
+        ids = lanes + [lanes[0]] * pad + list(resets)
+        n = len(ids) - len(resets)
+        self._count(spans.ROW_INDEX_UPLOADS)
+        if self.device.type != "cuda":
+            index = torch.tensor(ids, dtype=torch.long, device=self.device)
+            return index[:n], index[n:]
+        if self._rows_host is None:
+            cap = self._tick_width(self.slots) + self.slots
+            self._rows_host = torch.empty(cap, dtype=torch.long,
+                                          pin_memory=True)
+            self._rows_dev = torch.empty(cap, dtype=torch.long,
+                                         device=self.device)
+        if self._rows_in_flight:
+            torch.cuda.current_stream(self.device).synchronize()
+        self._rows_host.numpy()[:len(ids)] = ids
+        index = self._rows_dev[:len(ids)]
+        index.copy_(self._rows_host[:len(ids)], non_blocking=True)
+        self._rows_in_flight = True
+        return index[:n], index[n:]
+
+    def _reset_cold(self, index: torch.Tensor) -> None:
+        """Admission's cold resets, in one batch: ``index``'s slots at
+        every allocated size, once per entry (their tokens fell due at
+        admission)."""
+        for size, st in self._slot_states.items():
+            self._slot_states[size] = st.reset_rows_at(index)
+        self._count(spans.ROWS_RESET, int(index.shape[0]))
+
+    def _scatter(self, size: int, state: DigcState, served: DigcState,
+                 bucket_state: DigcState, lanes: torch.Tensor) -> None:
+        """Write the served rows of the live ``lanes`` back into ``size``'s
+        slot state (rows past them, padding, are dropped). A program that
+        passed its state through (``served is bucket_state``, a stateless
+        tier) changed no row: writing back the rows the tick gathered
+        would change nothing, so nothing is written."""
+        if served is bucket_state:
+            self._count(spans.SCATTER_SKIPPED)
+            return
+        self._slot_states[size] = state.put_rows(served, lanes)
+
     def _lanes(self, size: int, masked: bool, imgs: list, masks: list,
-               lanes: list) -> tuple:
+               rows: torch.Tensor) -> tuple:
         """The tick's bucket, cell key, device batch (and mask) and state
-        rows for the live ``lanes``, padded by replicating lane 0."""
-        a = len(lanes)
+        rows for the live lanes' images, padded by replicating lane 0;
+        ``rows`` is the padded lane index (``_row_index``)."""
+        a = len(imgs)
         bucket = self.bucket_for(a)
         width = self._tick_width(bucket)
         key = self._program_key(bucket, size, masked)
@@ -1411,8 +1499,7 @@ class VigServeEngine:
         images, mask = self._upload(
             key, imgs + [imgs[0]] * pad,
             masks + [masks[0]] * pad if masked else None)
-        rows = self._slot_states[size].take_rows(lanes + [lanes[0]] * pad)
-        return bucket, key, images, mask, rows
+        return bucket, key, images, mask, self._slot_states[size].take_rows(rows)
 
     def step(self) -> int:
         """One tick: pick a cell, bind its queued requests to slots,
@@ -1477,6 +1564,10 @@ class VigServeEngine:
         picked = sorted(((assigned[id(r)], r) for r in eligible
                          if id(r) in assigned), key=lambda sr: sr[0])
         self.queue = [r for r in self.queue if id(r) not in assigned]
+        lanes = [slot for slot, _ in picked]
+        rows, cold = self._row_index(lanes, self.last_resets)
+        if len(cold):
+            self._reset_cold(cold)
         if on:
             t = rec.lap("engine.select", t, tick, sid)
 
@@ -1507,10 +1598,9 @@ class VigServeEngine:
                 masks.append(np.ones(n, bool) if mask is None
                              else np.asarray(mask, bool))
             imgs.append(img)
-        lanes = [slot for slot, _ in picked]
         a = len(lanes)
         bucket, key, images, mask, bucket_state = self._lanes(
-            size, masked, imgs, masks, lanes)
+            size, masked, imgs, masks, rows)
         if on:
             t = rec.lap("engine.stage", t, tick, sid)
         healthy = picked
@@ -1522,6 +1612,7 @@ class VigServeEngine:
                 if on:
                     tw = spans.now()
                 ready.synchronize()
+                self._rows_in_flight = False  # the event follows the copy
                 if on:
                     rec.lap("engine.screen.wait", tw, tick, scr)
                     rec.count(spans.SYNCS)
@@ -1542,13 +1633,16 @@ class VigServeEngine:
             if len(keep) < a or reset:
                 # Quarantined lanes never reach the program and recovered
                 # rows are served cold: the tick goes up again, in the
-                # bucket that fits the healthy lanes.
+                # bucket that fits the healthy lanes. Its index reuses the
+                # pinned buffer: the screen's event, waited on above, was
+                # recorded after the first copy from it.
                 healthy = [picked[i] for i in keep]
                 lanes = [slot for slot, _ in healthy]
                 a = len(lanes)
+                rows, _ = self._row_index(lanes)
                 bucket, key, images, mask, bucket_state = self._lanes(
                     size, masked, [imgs[i] for i in keep],
-                    [masks[i] for i in keep] if masked else [], lanes)
+                    [masks[i] for i in keep] if masked else [], rows)
                 if on:
                     t = rec.lap("engine.stage", t, tick, sid)
         self.last_lanes = list(lanes)
@@ -1572,12 +1666,11 @@ class VigServeEngine:
                 rec.count(spans.SYNCS, reads)
             t = rec.lap("engine.capture" if first_tick else "engine.replay",
                         t, tick, sid, keep=first_tick)
-        # Scatter the live lanes only: rows >= a (padding) are dropped.
-        self._slot_states[size] = state.put_rows(new_bucket_state, lanes)
+        self._scatter(size, state, new_bucket_state, bucket_state, rows[:a])
         # The written rows' new tokens ride the logits' transfer: their
         # copy is queued first, and the logits' host sync closes both. A
         # program that passed the state through (a stateless tier) wrote
-        # the lanes' rows back unchanged: their tokens stand.
+        # no row: their tokens stand.
         if self.guards and new_bucket_state is not bucket_state:
             self._tokens_due.update((size, s) for s in lanes)
         due = self._due(size)
@@ -1586,6 +1679,7 @@ class VigServeEngine:
         if on:
             t = rec.lap("engine.scatter", t, tick, sid)
         logits_np = logits[:a].cpu().numpy()  # host sync closes the tick
+        self._rows_in_flight = False
         if on and logits.is_cuda:
             rec.count(spans.SYNCS)
         if due:
@@ -1697,6 +1791,10 @@ class VigServeEngine:
             "graph_reuses": self.graph_reuses,
             "graph_rebuilds": self.graph_rebuilds,
             "gate_reads": self.gate_reads,
+            # the row lifecycle: rows_reset, row_index_uploads,
+            # scatter_skipped
+            **{k.removeprefix("engine."): n
+               for k, n in self.row_counts.items()},
             "digc_cache": self.cache.stats(),
             # fault tolerance (DESIGN.md §11)
             "guards": self.guards,

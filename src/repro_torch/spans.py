@@ -41,6 +41,10 @@ KEEP = 1 << 12  # set-up spans kept for the life of the process
 ANCHOR_NS = 1_000_000_000  # the longest stretch between two wall-clock anchors
 ANCHORS = 1 << 14  # anchors kept (the older half is dropped past it)
 SYNCS = "engine.syncs"  # host waits on the device inside VigServeEngine.step
+# The engine's slot-row lifecycle (also in VigServeEngine.stats()):
+ROWS_RESET = "engine.rows_reset"  # slots cold-reset by a tick's batched reset
+ROW_INDEX_UPLOADS = "engine.row_index_uploads"  # staged row-index copies
+SCATTER_SKIPPED = "engine.scatter_skipped"  # ticks whose program passed its state through
 WAITS = ("engine.screen.wait", "engine.pull")  # a tick's spans that wait on the device
 
 

@@ -483,3 +483,25 @@ def test_pull_leads_read_the_copy_calls_inside_each_pull():
     marks = [{"name": "engine.pull", "ts": 1000.0, "dur": 50.0},
              {"name": "engine.pull", "ts": 5000.0, "dur": 50.0}]  # no copy
     assert tool.pull_leads(events, marks, since_us=0) == [(1000.0, 3.0)]
+
+
+def test_device_offsets_read_copies_from_pinned_memory():
+    """The engine's row index is copied from pinned memory: such copies
+    give the clocks' offset too, and copies to the host give none."""
+    tool = _tool()
+    events = []
+    for i in range(20):  # one tick a ms: its index, then a logits pull
+        host = 1000.0 * i
+        for j, (name, late) in enumerate((
+                ("Memcpy HtoD (Pinned -> Device)", 4.0),
+                ("Memcpy DtoH (Device -> Pageable)", -400.0))):
+            c = 2 * i + j
+            events.append({"ph": "X", "cat": "cuda_runtime",
+                           "name": "cudaMemcpyAsync", "ts": host + 500 * j,
+                           "dur": 3.0, "args": {"correlation": c}})
+            events.append({"ph": "X", "cat": "gpu_memcpy", "name": name,
+                           "ts": host + 500 * j + late - 30.0, "dur": 1.0,
+                           "args": {"correlation": c}})
+    offsets = tool.device_offsets(events, window_us=5_000.0)
+    assert offsets == [(5_000.0 * w, pytest.approx(-26.0))
+                       for w in range(4)]

@@ -88,11 +88,10 @@ def device_offsets(events: list, window_us: float = WINDOW_US) -> list:
     """How far the trace's device clock runs from its host clock, as
     (host time, offset) in us, one reading per ``window_us`` of host
     time: the least (device start - host call start) over the window's
-    copies from pageable memory, at the call that gave it. Such a copy
-    runs inside its call and the stream sync after it, on an idle device
-    (the engine makes them while it binds a tick's requests), so the
-    least gap in a window is the copy's latency (a few us) plus the
-    clocks' offset. A reading further than ``STEP_US`` plus ``DRIFT`` of
+    copies to the device, at the call that gave it. A tick's first copy,
+    its row index, is made in ``engine.select`` on a device idle since
+    the last tick's pull, so the least gap in a window is the copy's
+    latency (a few us) plus the clocks' offset. A reading further than ``STEP_US`` plus ``DRIFT`` of
     the time since from the last one kept is dropped: a clock does not
     jump."""
     calls = {e["args"]["correlation"]: float(e["ts"]) for e in events
@@ -101,7 +100,7 @@ def device_offsets(events: list, window_us: float = WINDOW_US) -> list:
     least: dict[int, tuple] = {}
     for e in events:
         if (e.get("ph") != "X" or e.get("cat") != "gpu_memcpy"
-                or "Pageable -> Device" not in e.get("name", "")):
+                or "HtoD" not in e.get("name", "")):
             continue
         host = calls.get(e.get("args", {}).get("correlation"))
         if host is None:
