@@ -3,14 +3,14 @@
     python vigbench/control.py --workloads <cell>[,<cell>...] --seeds 1,2,3 --seconds 3
 
 For each cell and seed, in one process: the cell's program serves the
-cell's traffic for ``--seconds`` and every answer is compared with the
-plain reference (the program's reading). Then, on the same requests, the
-reference computed in TF32 (``vig_plain``'s ``precision="tf32"``) is put
-in the program's place (the control's reading), and the program's own
-answers are broken in the upper half of every bucket's lanes: each such
-lane returns the answer of the tick's first lane (``upper_lanes_other``)
-or all zeros (``upper_lanes_zero``). Prints one JSON line per cell and
-seed with each side's held numbers and quantiles of its gaps.
+cell's traffic for ``--seconds`` and its answers are held against the
+plain reference (the program's reading). Then each of the family's
+controls (``family.controls``: for the ViG family the reference in TF32
+put in the program's place, and the program's answers broken in the
+upper half of every bucket's lanes) is held against the same reference.
+Prints one JSON line per cell and seed with each side's held numbers
+(``family.held``); ``family.CONTROL_BREAKS`` names the limit that each
+control must exceed.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def break_upper_lanes(done: list, how: str) -> list:
     return out
 
 
-def _broken(window, how: str):
+def broken_window(window, how: str):
     """The window with its ticks' answers broken as ``break_upper_lanes``
     does (a tick's requests share their start)."""
     ticks = defaultdict(list)
@@ -57,22 +57,11 @@ def _broken(window, how: str):
     return dataclasses.replace(window, requests=reqs)
 
 
-def _numbers(family, window, ref, limits) -> dict:
-    by_lane, missing = family.answer_gaps(window, ref)
-    gaps = [g for lane in by_lane.values() for g in lane]
-    held = family.lane_quartiles(by_lane, int(limits["lane_min_answers"]))
-    q = np.quantile(gaps, [0.25, 0.5, 0.75])
-    return {"missing": missing, "gap_q25_worst_lane": max(held.values()),
-            "lanes_held": len(held),
-            "least_answers_in_a_lane": min(len(g) for g in by_lane.values()),
-            "gap_q25": float(q[0]), "gap_median": float(q[1]),
-            "gap_q75": float(q[2]), "gap_max": max(gaps)}
-
-
 def readings(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
              device) -> dict:
-    """The program's numbers, the TF32 control's and the broken lanes'
-    for one seed."""
+    """The program's held numbers and each of its family's controls' for
+    one seed. ``reference_s`` is the reference's time with the program's
+    comparison (a reference that teacher-forces works as it compares)."""
     import gc
 
     import torch
@@ -88,16 +77,11 @@ def readings(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
     gc.collect()
     t0 = time.perf_counter()
     ref = family.reference(cfg, weights, pool_dev)
-    ref_s = time.perf_counter() - t0
-    low = family.reference(cfg, weights, pool_dev, "tf32")
-    control = dataclasses.replace(window, requests=[
-        dataclasses.replace(r, answer=low[r.item], failed=False)
-        for r in window.requests])
-    out = {"seed": seed, "requests": len(window.requests), "reference_s": ref_s,
-           "program": _numbers(family, window, ref, limits),
-           "control_tf32": _numbers(family, control, ref, limits)}
-    for how in ("other", "zero"):
-        out[f"upper_lanes_{how}"] = _numbers(family, _broken(window, how), ref, limits)
+    program = family.held(window, ref, limits)
+    out = {"seed": seed, "requests": len(window.requests),
+           "reference_s": time.perf_counter() - t0, "program": program}
+    for name, broken in family.controls(cfg, weights, pool_dev, window, ref).items():
+        out[name] = family.held(broken, ref, limits)
     return out
 
 

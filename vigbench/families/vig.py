@@ -9,6 +9,7 @@ dense weights stored (in, out)).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -244,3 +245,42 @@ def compare(window, ref: np.ndarray, limits: dict) -> dict:
     numbers = {"missing": float(missing),
                "gap_q25_worst_lane": max(q.values()) if q else math.inf}
     return {k: {"value": v, "limit": float(limits[k])} for k, v in numbers.items()}
+
+
+def held(window, ref: np.ndarray, limits: dict) -> dict:
+    """The numbers ``compare`` holds (``missing``, ``gap_q25_worst_lane``)
+    with what they are read from: the lanes held, the fewest answers in a
+    lane, and quartiles and the largest of every answer's gap."""
+    by_lane, missing = answer_gaps(window, ref)
+    gaps = [g for lane in by_lane.values() for g in lane]
+    q = lane_quartiles(by_lane, int(limits["lane_min_answers"]))
+    quart = np.quantile(gaps, [0.25, 0.5, 0.75])
+    return {"missing": missing, "gap_q25_worst_lane": max(q.values()),
+            "lanes_held": len(q),
+            "least_answers_in_a_lane": min(len(g) for g in by_lane.values()),
+            "gap_q25": float(quart[0]), "gap_median": float(quart[1]),
+            "gap_q75": float(quart[2]), "gap_max": max(gaps)}
+
+
+def controls(cfg: dict, weights: dict, pool: torch.Tensor, window, ref) -> dict:
+    """Windows that ``compare`` must refuse, on the window's own requests:
+    the reference in TF32 (one step below the configuration's fp32) put
+    in the program's place for each request's image (``control_tf32``),
+    and the program's answers with the upper half of every bucket's lanes
+    answered by the tick's row 0 (``upper_lanes_other``) or by zeros
+    (``upper_lanes_zero``)."""
+    from vigbench import control
+
+    low = reference(cfg, weights, pool, "tf32")
+    out = {"control_tf32": dataclasses.replace(window, requests=[
+        dataclasses.replace(r, answer=low[r.item], failed=False)
+        for r in window.requests])}
+    for how in ("other", "zero"):
+        out[f"upper_lanes_{how}"] = control.broken_window(window, how)
+    return out
+
+
+# The held limit that each of ``controls``' windows must exceed.
+CONTROL_BREAKS = {"control_tf32": "gap_q25_worst_lane",
+                  "upper_lanes_other": "gap_q25_worst_lane",
+                  "upper_lanes_zero": "gap_q25_worst_lane"}
