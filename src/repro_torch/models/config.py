@@ -119,3 +119,33 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN's rotary scaling as DeepSeek's ``DeepseekV2YarnRotaryEmbedding``
+    applies it (``rope_scaling`` of a published ``config.json``)."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """A DeepSeek-V2 model as published, with what JAX's ``ModelConfig``
+    has no field for (JAX's configs, which the port's registry copies
+    field for field, make every layer MoE, renormalise the top-k gates
+    and use plain RoPE): ``dense_layers`` leading layers with a dense
+    SwiGLU of width ``dense_d_ff`` (``first_k_dense_replace``,
+    ``intermediate_size``), the top-k gates kept as the softmax gives
+    them when ``norm_topk`` is False (``norm_topk_prob``), and YaRN on
+    the rotary dims with its softmax ``mscale`` (``rope_scaling``)."""
+
+    dense_layers: int = 0
+    dense_d_ff: int = 0
+    norm_topk: bool = True
+    yarn: Optional[YarnConfig] = None

@@ -14,6 +14,7 @@ that row's slot, for the rows ``rows`` names (all rows when None).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -66,11 +67,46 @@ def _rope_freqs(dh_half: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude correction, ``0.1 m ln(factor) + 1`` (1 when the
+    context is not stretched)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_band(dh: int, theta: float, yarn) -> tuple[int, int]:
+    """The rotary pairs (low, high) between which YaRN ramps from the
+    original frequencies to the interpolated ones: the pair index at
+    which a wavelength fits ``beta_fast`` (low, floored) and
+    ``beta_slow`` (high, ceiled) times into the original context."""
+
+    def dim(rotations):
+        return (dh * math.log(yarn.original_max_position / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    return (max(math.floor(dim(yarn.beta_fast)), 0),
+            min(math.ceil(dim(yarn.beta_slow)), dh - 1))
+
+
+def yarn_freqs(dh: int, theta: float, yarn, device=None) -> torch.Tensor:
+    """YaRN's rotary frequencies (dh//2,): each pair's original frequency
+    below the band, divided by ``factor`` above it, and a linear blend of
+    the two inside it."""
+    extra = _rope_freqs(dh // 2, theta, device)
+    low, high = yarn_band(dh, theta, yarn)
+    ramp = (torch.arange(dh // 2, dtype=torch.float32, device=device) - low) / max(
+        high - low, 1e-3)
+    keep = 1.0 - ramp.clamp(0.0, 1.0)  # 1: the original frequency
+    return extra / yarn.factor * (1.0 - keep) + extra * keep
+
+
 def rope_angles(positions: torch.Tensor, dh: int, theta: float,
-                mrope_sections: Optional[tuple[int, ...]] = None) -> torch.Tensor:
-    """positions: (B, S) or (3, B, S) for M-RoPE -> angles (B, S, dh//2)."""
+                mrope_sections: Optional[tuple[int, ...]] = None,
+                yarn=None) -> torch.Tensor:
+    """positions: (B, S) or (3, B, S) for M-RoPE -> angles (B, S, dh//2);
+    ``yarn`` (a ``YarnConfig``) scales the frequencies (``yarn_freqs``)."""
     half = dh // 2
-    freqs = _rope_freqs(half, theta, positions.device)  # (half,)
+    freqs = (_rope_freqs(half, theta, positions.device) if yarn is None
+             else yarn_freqs(dh, theta, yarn, positions.device))  # (half,)
     if mrope_sections is None:
         return positions[..., None].float() * freqs  # (B,S,half)
     if positions.ndim != 3:
@@ -228,14 +264,14 @@ def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, window: int = 0, q_offset=0, kv_len=None,
-                q_chunk: int = 512) -> torch.Tensor:
+                q_chunk: int = 512, scale: Optional[float] = None) -> torch.Tensor:
     """Memory-bounded exact attention: iterate query chunks, full softmax
     over keys per chunk. q: (B,Sq,H,dh), k/v: (B,Skv,KVH,dv).
 
     Grouped-query form: KV heads are never repeated; the einsum carries
     the (kv_head, group) split. ``q_offset``: absolute position of q[0]
     relative to k[0]. ``kv_len``: valid key prefix (masks the cache
-    tail). Chunks hold ``q_chunk`` rows and the last one the rest, where
+    tail). ``scale``: the softmax scale (None: ``dh**-0.5``). Chunks hold ``q_chunk`` rows and the last one the rest, where
     JAX halves the chunk until it divides Sq (a row's result does not
     depend on its chunk): at whisper's 1500 encoder frames JAX's rule
     gives 375 chunks of 4 rows a layer (ROADMAP queue 3, item 21).
@@ -244,7 +280,7 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     dv = v.shape[-1]
-    scale = dh**-0.5
+    scale = dh**-0.5 if scale is None else scale
     qc = min(q_chunk, sq)
     kpos = torch.arange(skv, device=q.device)
     outs = []

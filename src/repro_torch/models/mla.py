@@ -4,7 +4,9 @@ normed) plus one RoPE key ``k_pe`` shared by the heads; the decode cache
 holds only those, (B, T, kv_lora) and (B, T, rope).
 
 Prefill expands per-head keys and values from the latent and runs causal
-``mha_chunked`` (its scale is q's width, nope + rope, as JAX's). Decode
+``mha_chunked``. The softmax scale is q's width to the -1/2, nope + rope,
+as JAX's, times YaRN's ``mscale`` squared under a config's ``yarn``
+(``softmax_scale``), which also sets the rotary frequencies. Decode
 uses the absorbed form: the query is taken into the latent space
 (``q_nope @ W_uk^T``), scored against the cached latents and RoPE keys,
 and the context is mapped out through ``W_uv``. Each row writes its new
@@ -30,6 +32,7 @@ from repro_torch.models.layers import (
     apply_rope,
     mha_chunked,
     rope_angles,
+    yarn_mscale,
 )
 from repro_torch.models.module import spec
 
@@ -50,22 +53,45 @@ def mla_spec(cfg: ModelConfig):
     }
 
 
+def softmax_scale(cfg: ModelConfig) -> float:
+    """(nope + rope)^-1/2, times ``yarn_mscale(factor, mscale_all_dim)``
+    squared under YaRN (DeepSeek's ``softmax_scale``)."""
+    m = cfg.mla
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    yarn = getattr(cfg, "yarn", None)
+    if yarn is not None and yarn.mscale_all_dim:
+        scale *= yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
+    return scale
+
+
+def _rope(x: torch.Tensor, cfg: ModelConfig, positions) -> torch.Tensor:
+    """RoPE over the rotary dims (B, S, H, rope); under YaRN with its
+    frequencies, cos and sin scaled by ``mscale / mscale_all_dim``'s
+    ratio of corrections (1 when they are equal)."""
+    m = cfg.mla
+    yarn = getattr(cfg, "yarn", None)
+    out = apply_rope(x, rope_angles(positions, m.qk_rope_dim, cfg.rope_theta,
+                                    yarn=yarn))
+    if yarn is not None:
+        ratio = (yarn_mscale(yarn.factor, yarn.mscale)
+                 / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+        if ratio != 1.0:
+            out = out * ratio
+    return out
+
+
 def _compress(params, x: torch.Tensor, cfg: ModelConfig, positions):
     """x -> (c_kv (B,S,lora), k_pe (B,S,rope)) cache entries."""
-    m = cfg.mla
     dt = cfg.compute_dtype
     c_kv = _rms_head(x @ params["w_dkv"].to(dt), params["kv_norm"])
-    k_pe = x @ params["w_kpe"].to(dt)
-    ang = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
-    k_pe = apply_rope(k_pe[:, :, None, :], ang)[:, :, 0, :]
-    return c_kv, k_pe
+    k_pe = _rope((x @ params["w_kpe"].to(dt))[:, :, None, :], cfg, positions)
+    return c_kv, k_pe[:, :, 0, :]
 
 
 def _queries(params, x: torch.Tensor, cfg: ModelConfig, positions):
     m = cfg.mla
     q = _proj_heads(x, params["wq"], cfg.compute_dtype)
-    q_pe = apply_rope(q[..., m.qk_nope_dim:],
-                      rope_angles(positions, m.qk_rope_dim, cfg.rope_theta))
+    q_pe = _rope(q[..., m.qk_nope_dim:], cfg, positions)
     return q[..., :m.qk_nope_dim], q_pe
 
 
@@ -86,7 +112,8 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
         q_cat = torch.cat([q_nope, q_pe], -1)
         k_cat = torch.cat([k_nope, k_pe[:, :, None, :].expand(
             *k_pe.shape[:2], h, m.qk_rope_dim)], -1)
-        out = mha_chunked(q_cat, k_cat, v, causal=True, q_chunk=cfg.q_chunk)
+        out = mha_chunked(q_cat, k_cat, v, causal=True, q_chunk=cfg.q_chunk,
+                          scale=softmax_scale(cfg))
         return _out_proj(out, params["wo"], dt), (c_kv, k_pe)
 
     b = x.shape[0]
@@ -94,7 +121,7 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     pv = _pos_vector(pos, b, x.device)
     _write_rows(cache, {"c_kv": c_kv, "k_pe": k_pe}, pv, rows,
                 _is_vector(pos))
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    scale = softmax_scale(cfg)
     c_cache = cache["c_kv"].to(dt)
     # absorb W_uk into the query: q_lat = q_nope @ W_uk^T per head
     q_lat = torch.einsum("bshk,lhk->bshl", q_nope, params["w_uk"].to(dt))

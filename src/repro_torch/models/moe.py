@@ -55,12 +55,15 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _router(params, tokens: torch.Tensor, m):
-    """tokens (T, D) -> (gates (T,k), sel (T,k), aux_loss, probs)."""
+def _router(params, tokens: torch.Tensor, m, norm_topk: bool = True):
+    """tokens (T, D) -> (gates (T,k), sel (T,k), aux_loss, probs). The
+    gates are the top-k softmax probabilities, renormalised to sum to 1
+    unless ``norm_topk`` is False (``DeepSeekV2Config.norm_topk``)."""
     logits = tokens.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     gates, sel = top_k(probs, m.top_k)
-    gates = gates / gates.sum(-1, keepdim=True)
+    if norm_topk:
+        gates = gates / gates.sum(-1, keepdim=True)
     # Switch load-balance loss: E * sum_e f_e * p_e, f_e from the primary
     # assignment (a comparison, where JAX one-hots: no device read)
     e = probs.shape[-1]
@@ -78,7 +81,8 @@ def _dense_moe(params, x: torch.Tensor, cfg: ModelConfig):
     dt = cfg.compute_dtype
     b, s, d = x.shape
     tokens = x.reshape(-1, d)
-    gates, sel, aux, _ = _router(params, tokens, m)
+    gates, sel, aux, _ = _router(params, tokens, m,
+                                 getattr(cfg, "norm_topk", True))
     comb = torch.zeros(tokens.shape[0], m.num_experts, dtype=torch.float32,
                        device=x.device).scatter_add_(1, sel, gates)
     # (E, T, F) by batched products over the experts: the stacked weights
@@ -95,7 +99,8 @@ def _dense_moe(params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _local_expert_moe(x_loc, router_w, w_gate, w_up, w_down, *, m, dt,
-                      mesh, axis_name: str, n_shards: int):
+                      mesh, axis_name: str, n_shards: int,
+                      norm_topk: bool = True):
     """One rank's rows through its expert shard. x_loc (b_loc, s, d);
     w_* the rank's (E_loc, ...) experts. Returns (out summed over the
     model axis, aux of these rows, drop fraction over the model axis)."""
@@ -108,7 +113,8 @@ def _local_expert_moe(x_loc, router_w, w_gate, w_up, w_down, *, m, dt,
 
     probs = torch.softmax(tokens.float() @ router_w.float(), dim=-1)
     gates, sel = top_k(probs, k)
-    gates = gates / gates.sum(-1, keepdim=True)
+    if norm_topk:
+        gates = gates / gates.sum(-1, keepdim=True)
     experts = torch.arange(e, device=sel.device)
     aux = e * ((sel[:, :1] == experts).float().mean(0) * probs.mean(0)).sum()
 
@@ -163,7 +169,8 @@ def _expert_parallel(params, x, cfg: ModelConfig, mesh, model_axis: str):
         x[shard * b_loc:(shard + 1) * b_loc], params["router"],
         params["w_gate"][experts], params["w_up"][experts],
         params["w_down"][experts], m=m, dt=cfg.compute_dtype, mesh=mesh,
-        axis_name=model_axis, n_shards=n_shards)
+        axis_name=model_axis, n_shards=n_shards,
+        norm_topk=getattr(cfg, "norm_topk", True))
     metrics = torch.stack([aux, drop])[None]
     for a in reversed(batch_axes):  # innermost axis first: row-major order
         out = all_gather(out, mesh, a, 0)

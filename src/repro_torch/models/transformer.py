@@ -9,7 +9,11 @@ Parameters keep JAX's stacked layout: every per-layer leaf carries a
 leading ``layers`` dimension (the hybrid: ``groups``, stacked over the
 groups with keys ``l{i}_{kind}``, then the unstacked remainder ``rem``
 of ``l{i}_rec`` layers), so converting a JAX tree is one-to-one; a Python
-loop walks it where JAX scans. The encoder-decoder (family ``audio``) is
+loop walks it where JAX scans. A published DeepSeek-V2
+(``DeepSeekV2Config``) stacks its ``dense_layers`` leading layers, each
+with a dense SwiGLU of width ``dense_d_ff``, under ``dense`` ahead of the
+MoE layers under ``layers``; its decode cache stays one stack over every
+layer. The encoder-decoder (family ``audio``) is
 ``models/encdec.py``. ``loss_fn`` is the training loss; under autograd
 each layer body follows the config's remat policy (``_remat``).
 
@@ -97,8 +101,15 @@ def _layer_kind(cfg: ModelConfig) -> str:
     return "attn_moe" if cfg.moe else "attn"
 
 
-def _mixer_layer_spec(cfg: ModelConfig, kind: str):
-    """One residual layer: temporal mixer + channel mixer."""
+def _dense_layers(cfg: ModelConfig) -> int:
+    """Leading layers with a dense MLP ahead of the MoE stack
+    (``DeepSeekV2Config.dense_layers``; 0 for JAX's configs)."""
+    return getattr(cfg, "dense_layers", 0)
+
+
+def _mixer_layer_spec(cfg: ModelConfig, kind: str, d_ff: Optional[int] = None):
+    """One residual layer: temporal mixer + channel mixer (a dense MLP of
+    width ``d_ff``, default the config's)."""
     if kind == "ssm":
         return {"ln1": norm_spec(cfg), "ssm": ssm_spec(cfg)}
     if kind == "rec":
@@ -106,7 +117,7 @@ def _mixer_layer_spec(cfg: ModelConfig, kind: str):
     else:
         mix = mla_spec(cfg) if cfg.mla else attention_spec(cfg)
     return {"ln1": norm_spec(cfg), "ln2": norm_spec(cfg), "mix": mix,
-            "mlp": moe_spec(cfg) if kind == "attn_moe" else mlp_spec(cfg)}
+            "mlp": moe_spec(cfg) if kind == "attn_moe" else mlp_spec(cfg, d_ff)}
 
 
 def _hybrid_layout(cfg: ModelConfig):
@@ -129,8 +140,12 @@ def param_spec(cfg: ModelConfig):
             p["rem"] = {f"l{i}_rec": _mixer_layer_spec(cfg, "rec")
                         for i in range(rem)}
         return p
+    n_dense = _dense_layers(cfg)
+    if n_dense:
+        p["dense"] = stack_specs(_mixer_layer_spec(cfg, "attn", cfg.dense_d_ff),
+                                 n_dense)
     p["layers"] = stack_specs(_mixer_layer_spec(cfg, _layer_kind(cfg)),
-                              cfg.num_layers)
+                              cfg.num_layers - n_dense)
     return p
 
 
@@ -163,9 +178,17 @@ def compute_params(params, cfg: ModelConfig, device=None):
 
 def _layers(cfg: ModelConfig) -> list:
     """Every layer in order as (kind, keys, index): the layer's parameters
-    (and cache entry) are the tree at ``keys`` under the stack's root (the
-    parameters' ``layers`` dict, or the whole tree for the hybrid), at
-    ``index`` on its leading axis (None: unstacked, a ``rem`` layer)."""
+    are the tree at ``keys`` under the stack's root (the parameters'
+    ``layers`` dict, or the whole tree for the hybrid and for a config
+    with dense leading layers), at ``index`` on its leading axis (None:
+    unstacked, a ``rem`` layer). The hybrid's cache entries lie at the
+    same place in its cache; every other cache is one stack over the
+    layers in this order (``_cache_entry``)."""
+    n_dense = _dense_layers(cfg)
+    if n_dense:
+        return ([("attn", ("dense",), i) for i in range(n_dense)]
+                + [(_layer_kind(cfg), ("layers",), i)
+                   for i in range(cfg.num_layers - n_dense)])
     if cfg.family != "hybrid":
         return [(_layer_kind(cfg), (), i) for i in range(cfg.num_layers)]
     pat, n_groups, rem = _hybrid_layout(cfg)
@@ -191,7 +214,18 @@ def _select(tree, keys: tuple, index: Optional[int]):
 
 
 def _stack_root(params, cfg: ModelConfig):
-    return params if cfg.family == "hybrid" else params["layers"]
+    if cfg.family == "hybrid" or _dense_layers(cfg):
+        return params
+    return params["layers"]
+
+
+def _cache_entry(cache, cfg: ModelConfig, n: int, keys: tuple,
+                 index: Optional[int]):
+    """Layer ``n``'s cache entry (its place ``keys``, ``index`` in
+    ``_layers``)."""
+    if cfg.family == "hybrid":
+        return _select(cache, keys, index)
+    return _select(cache, (), n)
 
 
 def _layer(params, i: int, cfg: ModelConfig):
@@ -437,12 +471,38 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
         cache = _map(torch.clone, cache)
     x = embed_apply(params["embed"], tokens, cfg)
     root = _stack_root(params, cfg)
-    for kind, keys, index in _layers(cfg):
+    for n, (kind, keys, index) in enumerate(_layers(cfg)):
         x, _, _ = _block(_select(root, keys, index), x, cfg, kind,
-                         positions=positions, cache=_select(cache, keys, index),
+                         positions=positions,
+                         cache=_cache_entry(cache, cfg, n, keys, index),
                          pos=pos, rows=rows)
     x = norm_apply(params["final_norm"], x, cfg)
     return unembed_apply(params["embed"], x, cfg), cache
+
+
+def prefills_into_rows(cfg: ModelConfig) -> bool:
+    """Whether ``prefill_into`` serves ``cfg``: a cache that is a stack of
+    positions over the whole context (full or KNN attention, MLA). The
+    SSM's and the hybrid's prefill caches are not (F19), nor local
+    attention's rolling buffer."""
+    return cfg.family not in ("ssm", "hybrid", "audio") and cfg.attention != "local"
+
+
+def prefill_into(params, cache, tokens: torch.Tensor, row: int, cfg: ModelConfig):
+    """Prefill one prompt (1, S) into row ``row`` of a decode cache, in
+    place: positions [0, S) of every layer's entries (keys and values, or
+    MLA's latents and rotary keys); every other row and position is left
+    bit for bit. Returns the prompt's logits (1, S, V). Needs S <= the
+    cache's length and ``prefills_into_rows(cfg)``."""
+    if not prefills_into_rows(cfg):
+        raise ValueError(f"{cfg.name!r}: its prefill cache is not decode's "
+                         "layout; prefill it token by token")
+    logits, entries, _ = forward(params, tokens, cfg, return_cache=True)
+    s = tokens.shape[1]
+    names = ("c_kv", "k_pe") if cfg.mla else ("k", "v")
+    for name, entry in zip(names, entries):
+        cache[name][:, row, :s] = entry[:, 0]
+    return logits
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,

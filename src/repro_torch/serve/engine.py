@@ -3,8 +3,9 @@
 ``ServeEngine``: LM greedy decoding over fixed batch slots
 (continuous-batching-lite). A request takes a free slot, its prompt is
 fed token by token through ``decode_step`` (the cache layout decode
-uses), and each tick decodes every active slot in one call with the
-per-slot position vector. Each call commits only its member rows: their
+uses; JAX's engine), or with ``prefill="whole"`` as one prefill of the
+whole prompt written into the slot's cache rows, and each tick decodes
+every active slot in one call with the per-slot position vector. Each call commits only its member rows: their
 new keys and values are written into the engine's cache in place (where
 JAX merges rows under a mask and donates the cache), so a slot that is
 not a member, prefilling or idle, keeps its cache bit for bit. The engine
@@ -158,13 +159,50 @@ class Request:
     max_new_tokens: int = 16
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
+    # (logit, log-sum-exp of its row) of each emitted token
+    out_scores: list = dataclasses.field(default_factory=list)
+
+
+# The attributes of ``ServeEngine``'s spans (``spans.attr_dict``):
+# ``lm.step`` (id: the tick), ``lm.prefill`` (id: the uid) and
+# ``lm.decode`` (id: the tick). ``device_ms`` is the call's time on the
+# card by CUDA events, read after the tick's device read (on the CPU, the
+# span's own length); ``kv`` counts the cache positions that the decode's
+# rows attend, their new ones included.
+LM_STEP_ATTRS = ("prefills", "slots")
+LM_PREFILL_ATTRS = ("tokens", "device_ms", "slot")
+LM_DECODE_ATTRS = ("kv", "device_ms", "rows")
 
 
 class ServeEngine:
-    """Greedy-decoding engine over the functional model API."""
+    """Greedy-decoding engine over the functional model API.
+
+    ``prefill="token"`` (JAX's engine) feeds an admitted prompt through
+    decode steps, one token a call. ``prefill="whole"`` runs it as one
+    ``transformer.prefill_into``, which writes positions [0, S) of the
+    slot's cache rows in place, for a config whose decode cache that
+    fills (``transformer.prefills_into_rows``; the others keep the token
+    path); a request's prompt and answer must then fit in ``max_len``. A
+    whole-prompt tick makes one device read: the admissions' prefills,
+    then one decode step of every active slot fed from the device (each
+    slot's next input token stays there), then the read of every token
+    the tick emitted. Its
+    decode step has one shape whatever the slots hold: every row computes,
+    and a slot that is not active is given position ``max_len``, where its
+    cache write is dropped. On a card that step is captured as a CUDA
+    graph when the engine is built and replayed every tick.
+
+    Each emitted token comes with its logit and its row's log-sum-exp
+    (``Request.out_scores``), read with the token. ``step()`` records the
+    span ``lm.step`` with ``lm.prefill`` (one per admission), ``lm.decode``
+    and ``lm.pull`` (the read's wait) inside it, and the counters
+    ``lm.prefill_tokens`` and ``lm.decode_tokens``; ``submit`` records
+    ``engine.submit``."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
-                 max_len: int = 512, device="cuda"):
+                 max_len: int = 512, device="cuda", prefill: str = "token"):
+        if prefill not in ("token", "whole"):
+            raise ValueError(f"prefill must be 'token' or 'whole': {prefill!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tr.compute_params(params, cfg, device=self.device)
@@ -175,6 +213,26 @@ class ServeEngine:
         self.slot_pos = np.zeros(slots, np.int32)
         self.queue: list[Request] = []
         self.decode_calls = 0  # observability: decode steps issued
+        self.prefill_calls = 0  # whole-prompt prefills issued
+        self.ticks = 0
+        self.whole = prefill == "whole" and tr.prefills_into_rows(cfg)
+        if self.whole:
+            # Each slot's next input token, on the device; the host's
+            # staging of a tick's prompts and positions, pinned on a card
+            # so that their copies wait on nothing, and rewritten only
+            # after the tick's read.
+            self._next = torch.zeros((slots, 1), dtype=torch.long,
+                                     device=self.device)
+            pin = self.device.type == "cuda"
+            self._stage_prompts = torch.zeros((slots, max_len), dtype=torch.int32,
+                                              pin_memory=pin)
+            self._stage_pos = torch.zeros(slots, dtype=torch.long, pin_memory=pin)
+            # The decode step's static inputs and outputs.
+            self._pos = torch.full((slots,), max_len, dtype=torch.long,
+                                   device=self.device)
+            self._rows = torch.arange(slots, device=self.device)
+            self._decoded = torch.zeros((slots, 3), device=self.device)
+            self._graph = self._capture() if pin else None
 
     def submit(self, req: Request):
         if len(req.prompt) == 0:
@@ -187,12 +245,23 @@ class ServeEngine:
                 f"request {req.uid}: max_new_tokens must be >= 1 "
                 "(prefill always emits the first token)"
             )
+        if self.whole and len(req.prompt) + req.max_new_tokens - 1 > self.max_len:
+            # Its last positions' cache writes would be dropped, and its
+            # later tokens computed without them.
+            raise ValueError(
+                f"request {req.uid}: a {len(req.prompt)}-token prompt and "
+                f"{req.max_new_tokens} new tokens exceed max_len {self.max_len}")
+        rec = spans.RECORDER
+        t0 = spans.now() if rec.enabled else 0
         self.queue.append(req)
+        if rec.enabled:
+            rec.lap("engine.submit", t0, req.uid)
 
-    def _step_decode(self, tokens, pos, members: list[int]):
+    def _step_decode(self, tokens, pos, members):
         """One decode step committing only ``members``' cache rows, in
         place. ``pos`` is the (slots,) per-slot position vector: a single
-        call serves arbitrarily mixed-length slots."""
+        call serves arbitrarily mixed-length slots. Host values are
+        uploaded; tensors on the device are used as they are."""
         self.decode_calls += 1
         dev = self.device
         logits, self.cache = tr.decode_step(
@@ -201,6 +270,22 @@ class ServeEngine:
             rows=torch.as_tensor(members, dtype=torch.long, device=dev),
         )
         return logits
+
+    @staticmethod
+    def _scores(rows: torch.Tensor) -> torch.Tensor:
+        """(n, V) logits -> (n, 3) fp32: the greedy token, its logit and
+        the row's log-sum-exp."""
+        rows = rows.float()
+        return torch.stack([rows.argmax(-1).float(), rows.amax(-1),
+                            torch.logsumexp(rows, -1)], -1)
+
+    @staticmethod
+    def _emit(req: Request, score) -> None:
+        tok, logit, lse = score
+        req.out_tokens.append(int(tok))
+        req.out_scores.append((logit, lse))
+        if len(req.out_tokens) >= req.max_new_tokens:
+            req.done = True  # the prefill's token may meet the budget
 
     def _prefill_one(self, slot: int, req: Request):
         """Feed the prompt through decode steps (token-by-token prefill;
@@ -214,35 +299,150 @@ class ServeEngine:
                 tokens, np.full(self.slots, t, np.int32), [slot]
             )
         self.slot_pos[slot] = len(req.prompt)
-        req.out_tokens.append(int(logits[slot, -1].argmax()))
-        if len(req.out_tokens) >= req.max_new_tokens:
-            req.done = True  # budget met by the prefill token itself
+        self._emit(req, self._scores(logits[slot:slot + 1, -1]).tolist()[0])
 
+    def _upload(self, host: torch.Tensor) -> torch.Tensor:
+        if self.device.type == "cuda":
+            return host.to(self.device, non_blocking=True)
+        return host.clone()
+
+    def _prefill_whole(self, slot: int, req: Request, k: int) -> torch.Tensor:
+        """One prefill of the prompt (staged in row ``k``) into ``slot``'s
+        cache rows; the slot's next input token stays on the device.
+        Returns the first token's score row (1, 3), unread."""
+        s = len(req.prompt)
+        self._stage_prompts[k, :s] = torch.from_numpy(
+            np.asarray(req.prompt, dtype=np.int32))
+        prompt = self._upload(self._stage_prompts[k:k + 1, :s])
+        self.prefill_calls += 1
+        last = tr.prefill_into(self.params, self.cache, prompt, slot,
+                               self.cfg)[:, -1]
+        self._next[slot] = last.argmax(-1)
+        self.slot_pos[slot] = s
+        return self._scores(last)
+
+    def _decode_rows(self) -> None:
+        """The whole-prompt decode step over the static buffers: every row
+        decodes its next token at its position in ``_pos`` (its cache write
+        dropped at ``max_len``), the next tokens stay in ``_next`` and the
+        rows' scores go to ``_decoded``."""
+        last = tr.decode_step(self.params, self.cache, self._next, self._pos,
+                              self.cfg, rows=self._rows)[0][:, -1]
+        self._next.copy_(last.argmax(-1, keepdim=True))
+        self._decoded.copy_(self._scores(last))
+
+    @torch.no_grad()
+    def _capture(self):
+        """The decode step captured as a CUDA graph, after two warm-up
+        steps on a side stream; every position is ``max_len``, so neither
+        writes the cache."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._decode_rows()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._decode_rows()
+        self._next.zero_()
+        return graph
+
+    def _decode_whole(self, active: list[int]) -> torch.Tensor:
+        """One decode step of the ``active`` slots from their tokens on
+        the device; returns every row's score (slots, 3), unread."""
+        pos = np.full(self.slots, self.max_len, np.int64)
+        pos[active] = self.slot_pos[active]
+        self._stage_pos.copy_(torch.from_numpy(pos))
+        self._pos.copy_(self._stage_pos, non_blocking=True)
+        self.decode_calls += 1
+        if self._graph is not None:
+            self._graph.replay()
+        else:
+            self._decode_rows()
+        return self._decoded
+
+    @staticmethod
+    def _event(timed: bool):
+        """A CUDA event recorded now on the current stream (None: untimed)."""
+        if not timed:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    @torch.no_grad()
     def step(self) -> int:
-        """One engine tick: refill slots, one decode step for the whole
-        batch. Returns number of active requests."""
+        """One engine tick: refill free slots (prefill), one decode step
+        for every active slot, the tick's read. Returns the number of
+        slots that decoded. No autograd graph is built, and no layer
+        body is checkpointed."""
+        rec = spans.RECORDER
+        on = rec.enabled
+        t_step = spans.now() if on else 0
+        self.ticks += 1
+        tick = self.ticks
+        sid = rec.open(t_step) if on else -1
+        timed = on and self.device.type == "cuda"
+        calls = []  # (name, id, t0, t1, events, attrs before device_ms, after)
+        picks, owners = [], []  # unread score rows and each row's (slot, request)
+        admitted = 0
         for s in range(self.slots):
-            if self.slot_req[s] is None or self.slot_req[s].done:
-                if self.queue:
-                    req = self.queue.pop(0)
-                    self.slot_req[s] = req
-                    self._prefill_one(s, req)
-        active = [s for s in range(self.slots)
-                  if self.slot_req[s] is not None and not self.slot_req[s].done]
-        if not active:
-            return 0
-        # batch decode: every active slot advances one token
-        tokens = np.zeros((self.slots, 1), np.int32)
+            if not self.queue or (self.slot_req[s] is not None
+                                  and not self.slot_req[s].done):
+                continue
+            req = self.queue.pop(0)
+            self.slot_req[s] = req
+            admitted += 1
+            t0, ev = (spans.now() if on else 0), self._event(timed)
+            if self.whole:
+                picks.append(self._prefill_whole(s, req, len(owners)))
+                owners.append((s, req))
+            else:
+                self._prefill_one(s, req)
+            if on:
+                calls.append(("lm.prefill", req.uid, t0, spans.now(),
+                              (ev, self._event(timed)), (len(req.prompt),), (s,)))
+                rec.count(spans.PREFILL_TOKENS, len(req.prompt))
+        fresh = {s for s, _ in owners}  # their prefill's token is not read yet
+        active = [s for s, req in enumerate(self.slot_req)
+                  if req is not None and not req.done
+                  and len(req.out_tokens) + (s in fresh) < req.max_new_tokens]
+        if active:
+            t0, ev = (spans.now() if on else 0), self._event(timed)
+            if self.whole:
+                picks.append(self._decode_whole(active))
+                owners += [(s, self.slot_req[s] if s in active else None)
+                           for s in range(self.slots)]
+            else:
+                tokens = np.zeros((self.slots, 1), np.int32)
+                for s in active:
+                    tokens[s, 0] = self.slot_req[s].out_tokens[-1]
+                logits = self._step_decode(tokens, self.slot_pos.copy(), active)
+            if on:
+                kv = int(self.slot_pos[active].sum()) + len(active)
+                calls.append(("lm.decode", tick, t0, spans.now(),
+                              (ev, self._event(timed)), (kv,), tuple(active)))
+                rec.count(spans.DECODE_TOKENS, len(active))
+        t_pull = spans.now() if on else 0
+        if picks:  # the whole-prompt tick's one device read
+            for (_, req), score in zip(owners, torch.cat(picks).tolist()):
+                if req is not None:  # a row that decoded for no request
+                    self._emit(req, score)
+        elif active:
+            scores = self._scores(logits[:, -1]).tolist()  # one read a tick
+            for s in active:
+                self._emit(self.slot_req[s], scores[s])
         for s in active:
-            tokens[s, 0] = self.slot_req[s].out_tokens[-1]
-        logits = self._step_decode(tokens, self.slot_pos.copy(), active)
-        nxt = logits[:, -1].argmax(-1).tolist()  # one device read a tick
-        for s in active:
-            req = self.slot_req[s]
-            req.out_tokens.append(nxt[s])
             self.slot_pos[s] += 1
-            if len(req.out_tokens) >= req.max_new_tokens:
-                req.done = True
+        if on:
+            t = rec.lap("lm.pull", t_pull, tick, sid)
+            for name, key, t0, t1, (ev0, ev1), head, tail in calls:
+                ms = ev0.elapsed_time(ev1) if ev0 is not None else (t1 - t0) / 1e6
+                names = LM_PREFILL_ATTRS if name == "lm.prefill" else LM_DECODE_ATTRS
+                rec.add(name, t0, t1, key, sid, (names, *head, ms, *tail))
+            rec.add("lm.step", t_step, t, tick, seq=sid,
+                    attrs=(LM_STEP_ATTRS, admitted, *active))
         return len(active)
 
     def run(self) -> list[Request]:

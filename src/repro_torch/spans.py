@@ -45,6 +45,9 @@ SYNCS = "engine.syncs"  # host waits on the device inside VigServeEngine.step
 ROWS_RESET = "engine.rows_reset"  # slots cold-reset by a tick's batched reset
 ROW_INDEX_UPLOADS = "engine.row_index_uploads"  # staged row-index copies
 SCATTER_SKIPPED = "engine.scatter_skipped"  # ticks whose program passed its state through
+# Tokens through ServeEngine: prompt tokens prefilled, rows decoded.
+PREFILL_TOKENS = "lm.prefill_tokens"
+DECODE_TOKENS = "lm.decode_tokens"
 WAITS = ("engine.screen.wait", "engine.pull")  # a tick's spans that wait on the device
 
 
