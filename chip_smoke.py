@@ -156,17 +156,23 @@ Phases, each printed as it runs; any failure exits non-zero:
     logits' RMS) with equal tokens; (c) ``attention="knn"`` with 64 neighbours: 4 requests of 256
     prompt tokens and 16 new ones, then one ``prefill`` of 1024 tokens
     timed, its DIGC calls counted, no kernel launched;
-23. the MoE family (plain PyTorch, no kernel of its own: JAX's MoE and MLA
-    are einsums and ``lax.top_k``): ``deepseek-v2-lite-16b`` at full width
+23. the MoE family (MLA in plain PyTorch, as JAX's einsums; the routed
+    experts in ``kernels/csrc/moe_experts.cu``, which replaces no TPU
+    kernel): ``deepseek-v2-lite-16b`` at full width
     (27 layers, d_model 2048, 16 heads, MLA kv_lora 512, qk 128 + 64, v
     128; 64 experts top-6 of d_expert 1408 and 2 shared; vocab 102400;
     bf16, 16.21 B parameters drawn on the card straight into the compute
     dtypes) through ``launch.serve.main``'s defaults: every token in
-    range, every logit finite, no kernel launched; tokens/s, decode
-    calls, the parameters' count and bytes, the peak memory allocated;
-    the decode step at 4 slots by CUDA events and profiled, beside two
-    bounds: the dense form's (every expert read) and a routed form's (the
-    experts this step's tokens select); a ``slots=1`` engine bit for bit
+    range, every logit finite, no kernel launched but the routed
+    experts'; tokens/s, decode calls, the parameters' count and bytes,
+    the peak memory allocated; the decode step at 4 slots by CUDA events
+    and profiled, beside two bounds: the dense form's (every expert read)
+    and a routed form's (the experts this step's tokens select); one
+    layer's routed kernel at 7 live rows of 64 and at 1,024 tokens against
+    its plain version (live rows within bf16's rounding, dead rows 0), and
+    its time beside its bound, the plain version's and the dense form's
+    (the kernel's row of the final summary); a ``slots=1
+    engine bit for bit
     the direct greedy loop (tokens, ``c_kv`` and ``k_pe``); then, the bf16
     engine freed, fp32 ``prefill`` + ``decode_step`` against ``forward``
     at 4 layers (rtol 2e-3, atol 2e-4) and the card against the CPU at 2
@@ -335,7 +341,7 @@ from repro_torch.core.tuner import tune_reuse  # noqa: E402
 from repro_torch.core.builder import degraded_spec  # noqa: E402
 from repro_torch.core.faults import FaultPlan  # noqa: E402
 from repro_torch.core.packedkey import idx_bits_for  # noqa: E402
-from repro_torch.kernels import _build, launch_counts, ops, reset_launch_counts  # noqa: E402
+from repro_torch.kernels import _build, launch_counts, moe_experts, ops, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.digc_topk import BIG, digc_topk_cuda, digc_topk_plain  # noqa: E402
 from repro_torch.kernels.mrconv import mrconv_cuda, mrconv_plain  # noqa: E402
 from repro_torch.models import convert, vig  # noqa: E402
@@ -395,6 +401,12 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mrconv.cu",
         "replaces": "src/repro/kernels/mrconv.py:82",
+    },
+    # no Pallas call: JAX's single-device MoE is einsums over every expert
+    "moe_experts": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+        "replaces": "src/repro/models/moe.py:70",
     },
 }
 
@@ -573,12 +585,13 @@ def card_and_software() -> tuple[str, str]:
 
 def build() -> None:
     phase("2. build")
-    lib = _build.load()
-    print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
-    for src, report in lib.ptxas.items():
-        for line in report.splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  {src}: {line.strip()}")
+    for name in _build.LIBRARIES:
+        lib = _build.load(name)
+        print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
+        for src, report in lib.ptxas.items():
+            for line in report.splitlines():
+                if "Used" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"  {src}: {line.strip()}")
 
 
 def kernels_vs_plain() -> float:
@@ -2858,12 +2871,14 @@ class FiniteEngine(ServeEngine):
 
 def served_tokens(eng: FiniteEngine, finished, counts: dict, n_req: int,
                   n_new: int, how: str) -> None:
-    """Checks a served run (tokens in range, every logit finite, no kernel
-    launched) and prints its tokens/s."""
+    """Checks a served run (tokens in range, every logit finite, the routed
+    expert kernel launched for a MoE model and no other kernel) and prints
+    its tokens/s."""
     n_tok = check_tokens(finished, n_req, n_new, eng.cfg.vocab_size)
-    if not bool(eng.finite) or fired(counts):
+    want = {"moe_experts"} if eng.cfg.moe else set()
+    if not bool(eng.finite) or set(fired(counts)) != want:
         raise AssertionError(f"finite logits {bool(eng.finite)}, kernel "
-                             f"launches {fired(counts)} (none expected)")
+                             f"launches {fired(counts)} (expected {want or 'none'})")
     params = eng.params  # the compute-dtype tree
     n_params = sum(t.numel() for t in module.leaves(params).values())
     print(f"served through {how}: {n_tok} tokens, "
@@ -2871,14 +2886,15 @@ def served_tokens(eng: FiniteEngine, finished, counts: dict, n_req: int,
           f"{eng.slots} slots), decode_calls {eng.decode_calls}; "
           f"{n_params / 1e9:.3f} B parameters held as "
           f"{sorted({str(t.dtype) for t in module.leaves(params).values()})} "
-          f"({tensor_bytes(params) / 1e9:.3f} GB); every logit finite, no "
-          "kernel launched")
+          f"({tensor_bytes(params) / 1e9:.3f} GB); every logit finite, "
+          f"kernel launches {fired(counts) or 'none'}")
 
 
-def served_through_main(arch: str) -> FiniteEngine:
+def served_through_main(arch: str) -> tuple[FiniteEngine, dict]:
     """``launch.serve.main`` at full width on the card with its defaults (8
     requests, 16 prompt and 16 new tokens, 4 slots), through a
-    ``FiniteEngine`` patched into ``launch.serve``; returns the engine."""
+    ``FiniteEngine`` patched into ``launch.serve``; returns the engine and
+    the run's launch counts (reset just before it)."""
     engines: list = []
 
     class Kept(FiniteEngine):
@@ -2895,7 +2911,7 @@ def served_through_main(arch: str) -> FiniteEngine:
         lm_serve.ServeEngine = ServeEngine
     eng = engines.pop()  # no cycle through Kept's closure keeps it alive
     served_tokens(eng, finished, counts, 8, 16, "repro_torch.launch.serve.main")
-    return eng
+    return eng, counts
 
 
 def timed_decode_step(eng: ServeEngine):
@@ -2929,7 +2945,7 @@ def lm_serving() -> None:
     t_phase = time.perf_counter()
     phase("22. LM serving on the card: olmo-1b at full width")
     cfg = lm_configs.get_config("olmo-1b")
-    eng = served_through_main("olmo-1b")
+    eng, _ = served_through_main("olmo-1b")
     params = eng.params
     n_params = sum(t.numel() for t in module.leaves(params).values())
     step_ms, prof, pos, _ = timed_decode_step(eng)
@@ -3135,7 +3151,87 @@ def expert_products(cfg, mlp: dict) -> None:
           f"{ms * cfg.num_layers:.3f} ms a step")
 
 
-def moe_serving() -> None:
+def close_bf16(got: torch.Tensor, want: torch.Tensor,
+               what: str) -> tuple[float, float]:
+    """bf16 outputs of two orders of the same sums: each element within 2e-2
+    of itself plus 2e-2 of the RMS, and the mean |diff| within 2e-3 of the
+    RMS (a wrong row or expert moves it by ~1). Returns the largest |diff|
+    and the RMS."""
+    got, want = got.float(), want.float()
+    rms = float(want.pow(2).mean().sqrt())
+    diff = (got - want).abs()
+    if not (bool((diff <= 2e-2 * (want.abs() + rms)).all())
+            and float(diff.mean()) <= 2e-3 * rms):
+        raise AssertionError(f"{what}: max |diff| {float(diff.max()):.4g}, "
+                             f"mean {float(diff.mean()):.4g}, RMS {rms:.4g}")
+    return float(diff.max()), rms
+
+
+def routed_expert_products(cfg, mlp: dict) -> dict:
+    """One layer's routed expert kernel (``kernels/moe_experts.py``) at the
+    served cell's decode (64 slot rows, 7 live) and at a 1,024-token
+    prefill, on a fixed routing: its output against the plain version's
+    (live rows within ``close_bf16``, dead rows 0), and by CUDA events its
+    time beside its bound (the selected experts' weights, the live rows in
+    and out, read and written once; 6 D F operations a pair), the plain
+    version's (the same arithmetic in 16-row tiles) and the dense form's
+    (``moe._dense_moe``: every expert on every row, cuBLAS's batched
+    products) as the yardstick. Returns the decode shape's summary row."""
+    m, d, f = cfg.moe, cfg.d_model, cfg.moe.d_expert
+    layer = {w: mlp[w][0] for w in ("router", "w_gate", "w_up", "w_down")}
+    g = torch.Generator(device=DEV).manual_seed(23)
+    summary = None
+    for rows, n_live in ((64, 7), (1024, 1024)):
+        x = torch.randn(rows, d, generator=g, device=DEV).to(cfg.compute_dtype)
+        live = torch.zeros(rows, dtype=torch.bool, device=DEV)
+        live[torch.randperm(rows, generator=g, device=DEV)[:n_live]] = True
+        gates, sel, _, _ = moe._router(layer, x, m, getattr(cfg, "norm_topk", True))
+        perm, row_off = moe_experts.dispatch(sel, live, m.num_experts)
+        args = (x, layer["w_gate"], layer["w_up"], layer["w_down"], perm,
+                row_off, gates.contiguous(), live)
+        got = moe_experts.moe_experts_cuda(*args)
+        want = moe_experts.moe_experts_plain(*args)
+        torch.cuda.synchronize()
+        if bool(got[~live].any()):
+            raise AssertionError("a dead row's routed output is not 0")
+        err, rms = close_bf16(got[live], want[live],
+                         f"routed kernel vs plain, {n_live} live rows of {rows}")
+
+        def kernel():
+            moe_experts.moe_experts_cuda(*args)
+
+        def plain():
+            moe_experts.moe_experts_plain(*args)
+
+        def dense():
+            moe._dense_moe(layer, x[None], cfg)
+
+        for fn in (kernel, plain, dense):
+            fn()
+        k_ms, p_ms, d_ms = (_events_ms(kernel, 20), _events_ms(plain, 3),
+                            _events_ms(dense, 10))
+        used = sel[live]
+        experts = int(torch.unique(used).numel())
+        nbytes = experts * 3 * d * f * 2 + 2 * n_live * d * 2
+        b_ms, by = bound(6.0 * used.numel() * d * f, nbytes, PEAK_BF16_FLOPS)
+        print(f"routed expert kernel, {n_live} live rows of {rows} "
+              f"({used.numel()} pairs, {experts} of {m.num_experts} experts): "
+              f"equal to the plain version on live rows (max |diff| {err:.4g} "
+              f"of an RMS {rms:.4g}), "
+              f"dead rows 0; {k_ms:.4f} ms (CUDA events, 20 calls), bound "
+              f"{b_ms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB) = "
+              f"{100 * b_ms / k_ms:.1f}% of its roofline; plain {p_ms:.3f} ms; "
+              f"dense form {d_ms:.3f} ms ({d_ms / k_ms:.1f} x the kernel)")
+        if summary is None:
+            summary = dict(shape=[rows, n_live, d, f, m.num_experts, m.top_k],
+                           max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=by, library_ms=d_ms)
+    return summary
+
+
+def moe_serving() -> tuple[int, dict]:
+    """Phase 23; returns the routed expert kernel's launches in the served
+    run and its summary row (``routed_expert_products``)."""
     t_phase = time.perf_counter()
     phase("23. MoE and MLA on the card: deepseek-v2-lite-16b at full width")
     cfg = lm_configs.get_config("deepseek-v2-lite-16b")
@@ -3143,7 +3239,7 @@ def moe_serving() -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    eng = served_through_main(cfg.name)
+    eng, counts = served_through_main(cfg.name)
     peak, cap = (torch.cuda.max_memory_allocated(),
                  torch.cuda.get_device_properties(0).total_memory)
     params = eng.params
@@ -3185,6 +3281,7 @@ def moe_serving() -> None:
           f"{min(distinct)}-{max(distinct)}), {100 * routed_ms / step_ms:.1f}% "
           f"of the step")
     expert_products(cfg, mlp)
+    moe_row = routed_expert_products(cfg, mlp)
     engine_equals_greedy(cfg, params)
     del eng, params, mlp, experts, step  # the fp32 checks need the room
     torch.cuda.empty_cache()
@@ -3194,6 +3291,7 @@ def moe_serving() -> None:
     torch.cuda.empty_cache()
     qwen3_moe_two_layers()
     print(f"phase 23 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return counts["moe_experts"], moe_row
 
 
 def qwen3_moe_two_layers() -> None:
@@ -3315,7 +3413,7 @@ def recurrent_model(arch: str) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    eng = served_through_main(arch)
+    eng, _ = served_through_main(arch)
     peak = torch.cuda.max_memory_allocated()
     print(f"{arch}: peak device memory allocated (init, engine, serving) "
           f"{(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
@@ -4541,7 +4639,8 @@ def main() -> None:
     scheduler_phase()
     approx_serving()
     lm_serving()
-    moe_serving()
+    moe_launches, moe_row = moe_serving()
+    rows["moe_experts"] = [moe_row]
     recurrent_serving()
     encdec_serving()
     training()
@@ -4552,22 +4651,26 @@ def main() -> None:
     # causal variant's at the KNN attention shape. Launches are those of
     # the path that runs each: serving (phase 4; packed and bf16, phase 8),
     # the public digc() with a bias (phase 8), KNN attention (phase 10),
-    # tuning (legacy, phase 12) and serving through bucket_rounds (phase 12).
+    # tuning (legacy, phase 12), serving through bucket_rounds (phase 12)
+    # and deepseek-v2-lite-16b served through launch.serve (phase 23, whose
+    # routed expert row is its decode: 64 slot rows, 7 live).
     digc_shapes, mr = (sorted(s) for s in main_path_shapes("vig_ti_iso"))
     iso = [8, *digc_shapes[len(digc_shapes) // 2]]
     knn = [KNN["heads"], KNN["seq"], KNN["seq"], KNN["dh"], KNN["nn"]]
     pick = {"digc_topk": iso, "digc_topk.packed": iso, "digc_topk.mxu_bf16": iso,
             "digc_topk.pos_bias": iso, "digc_topk.causal": knn,
             "digc_topk.legacy": iso, "digc_topk.bucket_rounds": iso,
-            "mrconv": [8, *mr[0]]}
+            "mrconv": [8, *mr[0]], "moe_experts": moe_row["shape"]}
     counts = {"digc_topk": launches, "mrconv": launches,
               "digc_topk.packed": served_counts["digc_topk.packed"],
               "digc_topk.mxu_bf16": served_counts["digc_topk.mxu_bf16"],
               "digc_topk.pos_bias": pos_counts["digc_topk.pos_bias"],
               "digc_topk.causal": knn_counts["digc_topk.causal"],
               "digc_topk.legacy": tuning_counts["digc_topk.legacy"],
-              "digc_topk.bucket_rounds": bucket_counts["digc_topk.bucket_rounds"]}
+              "digc_topk.bucket_rounds": bucket_counts["digc_topk.bucket_rounds"],
+              "moe_experts": moe_launches}
     errs = {"digc_topk": err_digc, "mrconv": 0.0,  # MRConv: bitwise checked
+            "moe_experts": moe_row["max_abs_err"],
             **{f"digc_topk.{v}": e for v, e in err_variants.items()},
             **{f"digc_topk.{v}": e for v, e in err_legacy.items()}}
     summary = []

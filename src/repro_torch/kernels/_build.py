@@ -1,15 +1,17 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into an object, all
-sources at once, and the objects are linked into one shared library with
-a plain C interface that ``ctypes`` loads. No source includes PyTorch's
-headers, which keeps the build short. The library is built once per
-process, at first use, into ``build/repro_torch/`` at the root of the
-checkout (a ``kernels.build`` span, kept for the life of the process, from
-which ``build_seconds`` is read); a failed build raises with nvcc's
-messages. ``build`` takes another source directory (an earlier commit's,
-to compare two builds in one process), and the wrappers launch that build
-inside ``use``.
+The sources go into two shared libraries with a plain C interface that
+``ctypes`` loads (``LIBRARIES``): the ViG kernels (DIGC, MRConv) and the
+routed MoE experts, so that a process serving an LM builds only the
+latter. Each of a library's sources is compiled by ``nvcc`` for
+``sm_90a`` into an object, all at once, and the objects are linked. No
+source includes PyTorch's headers, which keeps the build short. A library
+is built once per process, at first use, into ``build/repro_torch/`` at
+the root of the checkout (a ``kernels.build`` span, kept for the life of
+the process, from which ``build_seconds`` is read); a failed build raises
+with nvcc's messages. ``build`` takes another source directory (an
+earlier commit's, to compare two builds in one process), and the wrappers
+launch that build inside ``use``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ from repro_torch import spans
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libreprotorch_kernels.so"
+MOE_LIB_NAME = "libreprotorch_moe.so"
+# Each library's sources; a source <stem>.cu exports <stem>_launch.
+LIBRARIES = {LIB_NAME: ("digc_topk.cu", "mrconv.cu"),
+             MOE_LIB_NAME: ("moe_experts.cu",)}
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,6 +47,7 @@ SIGNATURES = {
     "digc_topk_launch": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P],
     "mrconv_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "moe_experts_launch": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 
@@ -69,9 +76,8 @@ def nvcc_path() -> str:
     )
 
 
-def _compile(nvcc: str, csrc: Path, tmp: Path) -> tuple[list[Path], dict]:
-    """Compile every source in parallel; return objects and reports."""
-    sources = sorted(csrc.glob("*.cu"))
+def _compile(nvcc: str, sources: list[Path], tmp: Path) -> tuple[list[Path], dict]:
+    """Compile the sources in parallel; return objects and reports."""
     procs = []
     try:
         for src in sources:
@@ -97,31 +103,34 @@ def _compile(nvcc: str, csrc: Path, tmp: Path) -> tuple[list[Path], dict]:
 
 
 @functools.cache
-def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> KernelLibrary:
-    """Build (once per process and directory) and load the kernel library
-    of the sources in ``csrc``."""
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+          name: str = LIB_NAME) -> KernelLibrary:
+    """Build (once per process, directory and library) and load the
+    library ``name`` of the sources in ``csrc``."""
     nvcc = nvcc_path()
     build_dir.mkdir(parents=True, exist_ok=True)
     t0 = spans.now()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        objs, reports = _compile(nvcc, csrc, Path(tmp))
-        so_tmp = Path(tmp) / LIB_NAME
+        objs, reports = _compile(nvcc, [csrc / src for src in LIBRARIES[name]],
+                                 Path(tmp))
+        so_tmp = Path(tmp) / name
         link = subprocess.run(
             [nvcc, *ARCH, "-shared", "-o", str(so_tmp), *map(str, objs)],
             capture_output=True, text=True,
         )
         if link.returncode:
             raise KernelBuildError(f"nvcc link failed:\n{link.stderr}")
-        path = build_dir / LIB_NAME
+        path = build_dir / name
         # Atomic: a process that loaded an earlier build keeps its copy.
         os.replace(so_tmp, path)
     t1 = spans.now()
     if spans.RECORDER.enabled:
         spans.RECORDER.add("kernels.build", t0, t1, keep=True)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
+    for src in LIBRARIES[name]:
+        entry = Path(src).stem + "_launch"
+        fn = getattr(lib, entry)
+        fn.argtypes = SIGNATURES[entry]
         fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -132,10 +141,13 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> KernelLibrary:
 _active: list[KernelLibrary] = []  # innermost ``use`` last
 
 
-def load() -> KernelLibrary:
-    """The library the wrappers launch: the innermost ``use``'s, else this
-    checkout's sources, built once per process."""
-    return _active[-1] if _active else build()
+def load(name: str = LIB_NAME) -> KernelLibrary:
+    """The library ``name`` the wrappers launch: the innermost ``use``'s of
+    that name, else this checkout's sources, built once per process."""
+    for library in reversed(_active):
+        if library.path.name == name:
+            return library
+    return build(name=name)
 
 
 @contextlib.contextmanager
@@ -166,9 +178,10 @@ def check_operand(name: str, t, *, dtype, ndim: int, device) -> None:
                          "take fewer than 2**31")
 
 
-def check_launch(code: int, what: str) -> None:
-    """Raise if a launch function returned a CUDA error."""
+def check_launch(code: int, what: str, name: str = LIB_NAME) -> None:
+    """Raise if a launch function of library ``name`` returned a CUDA
+    error."""
     if code != 0:
-        msg = load().lib.repro_cuda_error_string(code).decode()
+        msg = load(name).lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {code} "
                            f"({msg})")

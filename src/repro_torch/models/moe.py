@@ -1,9 +1,17 @@
 """Mixture-of-Experts (port of ``repro/models/moe.py``): the fp32 router
-with its Switch load-balance loss, the shared experts, and two paths:
+with its Switch load-balance loss, the shared experts, and three paths:
 
-* no mesh, or a mesh whose model axis is 1: every expert on every token
-  weighted by the zeroed combine matrix (``_dense_moe``, JAX's
-  single-device path, the capacity-unlimited reference: nothing drops);
+* no mesh, or a mesh whose model axis is 1, and no input that autograd
+  records: routed experts (``_routed_moe``). Each selected (token, expert)
+  pair is computed once: the pairs are grouped by expert on the device
+  and the selected experts' products run in a hand-written kernel
+  (``kernels/moe_experts.py``; the plain PyTorch version on the CPU). Rows
+  that ``live`` marks dead enter no group. Nothing drops;
+* the same, with an input that requires grad (training), or on ``meta``
+  tensors (the dry-run, whose shapes cannot depend on the routing): every
+  expert on every token weighted by the zeroed combine matrix
+  (``_dense_moe``, JAX's single-device path, the capacity-unlimited
+  reference: nothing drops). The kernel has no backward;
 * a mesh with a model axis larger than 1: expert parallelism
   (``_local_expert_moe``). SPMD over ``torch.distributed``: every rank
   holds the global tokens and weights, takes its batch rows (split over
@@ -14,18 +22,23 @@ with its Switch load-balance loss, the shared experts, and two paths:
   all-reduce over the model axis combines the experts' outputs; the rows
   are gathered back, so every rank returns the global output.
 
-Top-k follows ``lax.top_k``: ties go to the lowest expert index (a stable
-descending sort; ``torch.topk`` promises no order among equal values).
+The paths share only ``_router``. Top-k follows ``lax.top_k``: ties go to
+the lowest expert index (a stable descending sort; ``torch.topk`` promises
+no order among equal values).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
+from repro_torch.kernels.moe_experts import moe_experts
 from repro_torch.launch.mesh import all_gather, all_reduce
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import active_mesh, spec
+from repro_torch.models.module import active_mesh, leaves, spec
 
 
 def moe_spec(cfg: ModelConfig):
@@ -96,6 +109,39 @@ def _dense_moe(params, x: torch.Tensor, cfg: ModelConfig):
                "moe_drop_frac": torch.zeros((), dtype=torch.float32,
                                             device=x.device)}
     return out.reshape(b, s, d), metrics
+
+
+def _routed_moe(params, x: torch.Tensor, cfg: ModelConfig,
+                live: Optional[torch.Tensor] = None):
+    """Each live (token, expert) pair once, grouped by expert on the device
+    (``kernels/moe_experts.py``): h and y rounded to the compute dtype, the
+    gates applied in fp32, as ``_dense_moe``. ``live`` (B,) bool: a dead
+    row's tokens enter no expert group and get 0."""
+    m = cfg.moe
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    tokens = x.reshape(-1, d)
+    gates, sel, aux, _ = _router(params, tokens, m,
+                                 getattr(cfg, "norm_topk", True))
+    if live is not None:
+        live = live.reshape(b, 1).expand(b, s).reshape(-1)
+    out = moe_experts(tokens.to(dt), params["w_gate"].to(dt),
+                      params["w_up"].to(dt), params["w_down"].to(dt), sel,
+                      gates, live)
+    metrics = {"moe_aux": aux,
+               "moe_drop_frac": torch.zeros((), dtype=torch.float32,
+                                            device=x.device)}
+    return out.reshape(b, s, d), metrics
+
+
+def _routes(params, x: torch.Tensor) -> bool:
+    """Whether ``moe_apply`` takes the routed path: no input that autograd
+    records (the kernel has no backward) and tensors with storage (the
+    dry-run's ``meta`` tensors keep the dense form)."""
+    if x.device.type == "meta":
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in leaves(params).values())))
 
 
 def _local_expert_moe(x_loc, router_w, w_gate, w_up, w_down, *, m, dt,
@@ -179,18 +225,28 @@ def _expert_parallel(params, x, cfg: ModelConfig, mesh, model_axis: str):
 
 
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
-              model_axis: str = "model"):
+              model_axis: str = "model", live: Optional[torch.Tensor] = None):
     """Returns (out, {"moe_aux", "moe_drop_frac"}), the shared experts
     added. Expert-parallel when ``mesh`` (default: the ``use_mesh``
-    context's) has a ``model_axis`` larger than 1, else dense."""
+    context's) has a ``model_axis`` larger than 1, else routed or dense
+    (``_routes``; a dense call counted under ``spans.MOE_DENSE_CALLS``).
+    ``live`` (B,) bool or None (every row): a dead row's output is the
+    shared experts' alone."""
     m = cfg.moe
     dt = cfg.compute_dtype
     mesh = mesh or active_mesh()
     if (mesh is not None and model_axis in mesh.axis_names
             and mesh.shape[model_axis] > 1):
         out, metrics = _expert_parallel(params, x, cfg, mesh, model_axis)
+    elif _routes(params, x):
+        out, metrics = _routed_moe(params, x, cfg, live)
+        live = None  # applied
     else:
+        if spans.RECORDER.enabled:
+            spans.RECORDER.count(spans.MOE_DENSE_CALLS)
         out, metrics = _dense_moe(params, x, cfg)
+    if live is not None:
+        out = torch.where(live[:, None, None], out, 0.0)
     if m.num_shared:
         sh = params["shared"]
         g = x @ sh["wi_gate"].to(dt)

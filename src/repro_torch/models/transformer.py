@@ -269,10 +269,11 @@ def _apply_mixer(lp, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
 
 
 def _block(lp, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
-           pos=None, rows=None):
+           pos=None, rows=None, live=None):
     """One residual layer: x + mixer(norm(x)); x + mlp(norm(x)) (none for
     an SSM layer). Returns (x, cache_entry, metrics): the MoE layer's
-    ``moe_aux`` and ``moe_drop_frac``, empty for a dense MLP."""
+    ``moe_aux`` and ``moe_drop_frac``, empty for a dense MLP. ``live``
+    (B,) bool or None goes to the MoE (``moe_apply``)."""
     h = norm_apply(lp["ln1"], x, cfg)
     mix_out, cache_entry = _apply_mixer(lp, h, cfg, kind, positions=positions,
                                         cache=cache, pos=pos, rows=rows)
@@ -281,7 +282,7 @@ def _block(lp, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
         return x, cache_entry, {}
     h = norm_apply(lp["ln2"], x, cfg)
     if kind == "attn_moe":
-        mlp_out, metrics = moe_apply(lp["mlp"], h, cfg)
+        mlp_out, metrics = moe_apply(lp["mlp"], h, cfg, live=live)
     else:
         mlp_out, metrics = mlp_apply(lp["mlp"], h, cfg), {}
     return x + mlp_out, cache_entry, metrics
@@ -447,7 +448,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
 
 
 def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
-                positions=None, rows: Optional[torch.Tensor] = None):
+                positions=None, rows: Optional[torch.Tensor] = None,
+                live: Optional[torch.Tensor] = None):
     """One decode step. tokens (B,1); ``pos`` a scalar (write slot and
     absolute position of every row) or a (B,) per-slot vector: a
     mixed-length slot batch decodes in one call, each row writing its
@@ -459,6 +461,11 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
     (keys and values, MLA's latents, or a recurrent layer's whole state)
     are written into ``cache`` in place and it is returned; other rows'
     caches are left bit for bit and their logits are unspecified.
+
+    ``live`` (B,) bool or None (every row): the rows the caller reads. A
+    dead row enters no routed expert group (its MoE output is the shared
+    experts' alone) and its logits are unspecified; a live row's values do
+    not depend on which other rows are live.
     """
     check_ported(cfg)
     b = tokens.shape[0]
@@ -475,7 +482,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig, *,
         x, _, _ = _block(_select(root, keys, index), x, cfg, kind,
                          positions=positions,
                          cache=_cache_entry(cache, cfg, n, keys, index),
-                         pos=pos, rows=rows)
+                         pos=pos, rows=rows, live=live)
     x = norm_apply(params["final_norm"], x, cfg)
     return unembed_apply(params["embed"], x, cfg), cache
 

@@ -325,9 +325,12 @@ class ServeEngine:
         """The whole-prompt decode step over the static buffers: every row
         decodes its next token at its position in ``_pos`` (its cache write
         dropped at ``max_len``), the next tokens stay in ``_next`` and the
-        rows' scores go to ``_decoded``."""
+        rows' scores go to ``_decoded``. A row at ``max_len`` serves no
+        request: it is passed as dead (``live``), so its tokens enter no
+        routed expert group."""
         last = tr.decode_step(self.params, self.cache, self._next, self._pos,
-                              self.cfg, rows=self._rows)[0][:, -1]
+                              self.cfg, rows=self._rows,
+                              live=self._pos < self.max_len)[0][:, -1]
         self._next.copy_(last.argmax(-1, keepdim=True))
         self._decoded.copy_(self._scores(last))
 

@@ -48,6 +48,10 @@ SCATTER_SKIPPED = "engine.scatter_skipped"  # ticks whose program passed its sta
 # Tokens through ServeEngine: prompt tokens prefilled, rows decoded.
 PREFILL_TOKENS = "lm.prefill_tokens"
 DECODE_TOKENS = "lm.decode_tokens"
+# moe_apply's calls that ran every expert on every token (_dense_moe),
+# counted on the host; the routed path's kernel launches are in
+# kernels.launch_counts()["moe_experts"].
+MOE_DENSE_CALLS = "moe.dense_calls"
 WAITS = ("engine.screen.wait", "engine.pull")  # a tick's spans that wait on the device
 
 
